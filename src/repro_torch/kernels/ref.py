@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of every kernel of the port (oracles + CPU path).
+
+Torch twins of the JAX package's ``repro.kernels.ref``, plus the plain
+version of the direct-gather Stage 4 kernel (the port of
+``repro.core.dataplane.adc_lb_direct``). ``kernels.ops`` runs these for CPU
+tensors; the tests hold them against the JAX package and ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
+
+Packed words are int32 tensors carrying the uint32 bit patterns: torch has
+no popcount and cannot shift ``torch.uint32`` on every backend, so
+:func:`popcount32` widens to int64, masks to 32 bits and counts by SWAR.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["popcount32", "hamming_ref", "hamming_stacked_ref", "adc_lb_ref",
+           "adc_lb_batch_ref", "adc_lb_direct_ref", "adc_direct_ref"]
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int32 bit pattern) → int32."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def hamming_ref(q_packed: torch.Tensor, db_packed: torch.Tensor) -> torch.Tensor:
+    """(G,) query words vs (N, G) rows → (N,) int32 Hamming distances."""
+    x = torch.bitwise_xor(db_packed, q_packed[None, :])
+    return torch.sum(popcount32(x), dim=-1, dtype=torch.int32)
+
+
+def hamming_stacked_ref(q_packed: torch.Tensor,
+                        db_packed: torch.Tensor) -> torch.Tensor:
+    """(Q, P, G) query words vs (P, N, G) rows → (Q, P, N) int32."""
+    x = torch.bitwise_xor(db_packed[None], q_packed[:, :, None, :])
+    return torch.sum(popcount32(x), dim=-1, dtype=torch.int32)
+
+
+def adc_lb_ref(table: torch.Tensor, codes: torch.Tensor,
+               sqrt: bool = True) -> torch.Tensor:
+    """(M+1, d) table + (N, d) codes → (N,) f32 LB (gather formulation)."""
+    return adc_lb_batch_ref(table[None], codes[None], sqrt=sqrt)[0]
+
+
+def adc_lb_batch_ref(tables: torch.Tensor, codes: torch.Tensor,
+                     sqrt: bool = True) -> torch.Tensor:
+    """(B, M+1, d) f32 tables + (B, N, d) int32 codes → (B, N) f32."""
+    t = tables.to(torch.float32)
+    picked = torch.gather(t, 1, codes.to(torch.int64))       # (B, N, d)
+    s = torch.sum(picked, dim=-1)
+    return torch.sqrt(s) if sqrt else s
+
+
+def adc_lb_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
+                      boundaries: torch.Tensor,
+                      codes: torch.Tensor) -> torch.Tensor:
+    """Squared LB sums via direct boundary gathers (no dense table).
+
+    qt/qcell: (Q, P, d); boundaries: (P, M+1, d); codes: (Q, P, S, d) →
+    (Q, P, S) f32. Per (survivor, dim): 0 in the query's own cell, squared
+    distance to the facing cell edge otherwise — computed in qt's dtype,
+    zeroed where not finite and cast to f32 before the row sum, as the JAX
+    package's ``dataplane.adc_lb_direct``.
+    """
+    qn, p = codes.shape[:2]
+    m1 = boundaries.shape[-2]
+    c = codes.to(torch.int64)
+    cc = qcell[:, :, None, :]                                 # (Q, P, 1, d)
+    b = boundaries[None].expand(qn, p, m1, boundaries.shape[-1])
+    right = torch.gather(b, 2, torch.clamp(c + 1, 0, m1 - 1))
+    left = torch.gather(b, 2, torch.clamp(c, 0, m1 - 1))
+    qtb = qt[:, :, None, :]
+    zero = torch.zeros((), dtype=qt.dtype, device=qt.device)
+    diff = torch.where(c < cc, qtb - right,
+                       torch.where(c > cc, left - qtb, zero))
+    sq = torch.where(torch.isfinite(diff), diff * diff, zero)
+    return torch.sum(sq.to(torch.float32), dim=-1)
+
+
+def adc_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
+                   boundaries: torch.Tensor, codes: torch.Tensor,
+                   sel: torch.Tensor) -> torch.Tensor:
+    """Plain version of the direct Stage 4 kernel (kernel 2b).
+
+    codes: (P, n_max, d) int32 stacked codes; sel: (Q, P, S) rows of each
+    (query, partition) pair's survivors → (Q, P, S) f32 squared LB. Gathers
+    the survivors' codes, then :func:`adc_lb_direct_ref`.
+    """
+    p = codes.shape[0]
+    p_idx = torch.arange(p, device=codes.device)[None, :, None]
+    return adc_lb_direct_ref(qt, qcell, boundaries, codes[p_idx, sel])

@@ -65,6 +65,10 @@ def pytest_configure(config):
         "markers",
         "mutation: live-index mutation regression tier (insert/delete/"
         "compact parity and stale-retention guards; select with -m mutation)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one — run on the card with -m cuda")
 
 
 _AUTO_MARKS = {

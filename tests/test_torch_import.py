@@ -1,0 +1,151 @@
+"""The PyTorch port stands alone: no jax, nothing of the JAX package.
+
+* ``repro_torch`` and every submodule import in a subprocess where ``jax``
+  and ``repro`` cannot be imported;
+* no module of the port, nor ``chip_smoke.py``, names ``jax`` or ``repro``
+  in an import statement;
+* entry points default to the card: without CUDA the torch backend raises
+  (naming ``device="cpu"``) instead of running on the CPU, and the kernel
+  wrappers refuse CPU tensors.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.kernels import adc_lookup, build, hamming, ops  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_files():
+    for dirpath, dirnames, files in os.walk(PORT):
+        dirnames.sort()
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_without_jax_or_reference_package():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
+        " if sys.modules[m] is not None]\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15      # every module of the slice
+
+
+@pytest.mark.parametrize("path", list(_port_files()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_jax_or_reference_package(path):
+    roots = set(_imported_roots(path))
+    assert "jax" not in roots and "repro" not in roots, roots
+
+
+def test_torch_backend_defaults_to_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.resolve_device(None)
+    assert pipeline.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_search_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(600, 16))
+    attrs = rng.integers(0, 4, size=(600, 2)).astype(np.float64)
+    index = pipeline.SquashIndex.build(
+        vecs, attrs, pipeline.SquashConfig(num_partitions=2, kmeans_iters=2,
+                                           lloyd_iters=2, max_bits_per_dim=4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index.search(vecs[:2], [], k=3, backend="torch")
+    ids, _, _ = index.search(vecs[:2], [], k=3, backend="torch", device="cpu")
+    assert ids.shape == (2, 3)
+    with pytest.raises(ValueError, match="unknown backend"):
+        index.search(vecs[:2], [], k=3, backend="jax")
+
+
+@pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_direct"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """A wrapper launches its kernel or raises: no quiet CPU fallback."""
+    words = torch.zeros((1, 1, 4), dtype=torch.int32)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if call == "hamming":
+            hamming.hamming_stacked(words, words)
+        elif call == "adc_batch":
+            adc_lookup.adc_batch(torch.zeros((1, 3, 4)),
+                                 torch.zeros((1, 2, 4), dtype=torch.int32))
+        else:
+            adc_lookup.adc_direct(
+                torch.zeros((1, 1, 4)), torch.zeros((1, 1, 4), dtype=torch.int32),
+                torch.zeros((1, 3, 4)), torch.zeros((1, 2, 4), dtype=torch.int32),
+                torch.zeros((1, 1, 2), dtype=torch.int64))
+    assert ops.launch_counts() == before
+
+
+def _op_args(name):
+    words = torch.zeros((1, 1, 4), dtype=torch.int32)
+    codes = torch.zeros((1, 2, 4), dtype=torch.int32)
+    return {
+        "hamming_distances": (words[0, 0], words[0]),
+        "hamming_stacked": (words, words),
+        "adc_distances": (torch.ones((3, 4)), codes[0]),
+        "adc_batch": (torch.ones((1, 3, 4)), codes),
+        "adc_direct": (torch.zeros((1, 1, 4)),
+                       torch.zeros((1, 1, 4), dtype=torch.int32),
+                       torch.zeros((1, 3, 4)), codes,
+                       torch.zeros((1, 1, 2), dtype=torch.int64)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["hamming_distances", "hamming_stacked",
+                                  "adc_distances", "adc_batch", "adc_direct"])
+def test_ops_use_kernel_override_reaches_the_wrapper(name):
+    op, args = getattr(ops, name), _op_args(name)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        op(*args, use_kernel=True)
+    plain = op(*args)                                 # CPU → plain version
+    assert torch.equal(plain, op(*args, use_kernel=False))
+    # Tables of ones over d=4 give sqrt(4); zero words and codes in the
+    # query's own cell give 0.
+    expected = 2.0 if name in ("adc_distances", "adc_batch") else 0
+    assert torch.all(plain == expected)
+
+
+def test_kernel_build_lands_in_the_checkout():
+    assert build.build_dir() == Path(REPO) / "build" / "repro_torch"
+    for src in build.SOURCES.values():
+        assert (build._CSRC / src).is_file()

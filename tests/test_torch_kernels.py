@@ -1,0 +1,169 @@
+"""The port's kernel twins against the JAX package's kernels.
+
+Inputs come from numpy with a seed and go through both packages. The JAX
+side runs its Pallas kernels in interpret mode and its jnp oracles; the
+torch side runs the plain versions that ``kernels.ops`` dispatches CPU
+tensors to. Tolerances: Hamming exact (integer sums); ADC ``rtol=1e-6``
+(f32 sums of ≤ d non-negative terms, in another order). The CUDA kernels
+themselves are held against these plain versions in
+``tests/test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import dataplane as jdp  # noqa: E402
+from repro.kernels import adc_lookup as jadc  # noqa: E402
+from repro.kernels import hamming as jham  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import dataplane  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+ADC_RTOL_JAX = 1e-6
+
+
+def _words(rng, shape):
+    """Random uint32 words, high bit included, as numpy uint32."""
+    w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    w.reshape(-1)[0] = 0xFFFFFFFF
+    return w
+
+
+def _t(words):
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+
+
+def _tables(rng, b, m1, d):
+    t = rng.exponential(size=(b, m1, d)).astype(np.float32)
+    t[:, 0, :] = 0.0
+    return t
+
+
+def _direct_inputs(rng, qn, p, n_max, s, d, m1, dtype=np.float64):
+    """Quantizer-shaped boundaries (+inf padded) and codes within each dim's
+    cells, queries inside the data range, survivors ``sel`` per pair."""
+    cells = rng.integers(1, m1, size=(p, d))
+    bnd = np.full((p, m1, d), np.inf)
+    for pi in range(p):
+        for j in range(d):
+            c = cells[pi, j]
+            inner = np.sort(rng.normal(size=c - 1))
+            bnd[pi, 0, j] = -np.inf
+            bnd[pi, 1:c, j] = inner
+            bnd[pi, c, j] = np.inf
+    codes = (rng.random((p, n_max, d)) * cells[:, None, :]).astype(np.int32)
+    qt = rng.normal(size=(qn, p, d)).astype(dtype)
+    sel = np.stack([np.stack([rng.choice(n_max, size=s, replace=False)
+                              for _ in range(p)]) for _ in range(qn)])
+    return qt, bnd.astype(dtype), codes, sel.astype(np.int64)
+
+
+# ------------------------------------------------------------ Hamming (1, 3)
+
+@pytest.mark.parametrize("qn,p,n,g", [(3, 2, 37, 4), (9, 1, 513, 1),
+                                      (5, 3, 100, 3)])
+def test_hamming_stacked_ref_equals_jax(qn, p, n, g):
+    rng = np.random.default_rng(qn * 100 + n)
+    q, db = _words(rng, (qn, p, g)), _words(rng, (p, n, g))
+    want = np.asarray(jham.packed_hamming_stacked(
+        jnp.asarray(q), jnp.asarray(db), interpret=True))
+    np.testing.assert_array_equal(
+        want, np.asarray(jref.hamming_stacked_ref(jnp.asarray(q),
+                                                  jnp.asarray(db))))
+    got = ref.hamming_stacked_ref(_t(q), _t(db))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ops.hamming_stacked(_t(q), _t(db)).numpy(),
+                                  want)
+
+
+def test_hamming_single_query_view_equals_jax():
+    rng = np.random.default_rng(3)
+    q, db = _words(rng, (4,)), _words(rng, (77, 4))
+    want = np.asarray(jham.packed_hamming(jnp.asarray(q), jnp.asarray(db),
+                                          interpret=True))
+    np.testing.assert_array_equal(ref.hamming_ref(_t(q), _t(db)).numpy(), want)
+    np.testing.assert_array_equal(
+        ops.hamming_distances(_t(q), _t(db)).numpy(), want)
+
+
+def test_popcount32_all_bit_patterns():
+    vals = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x55555555, 0xF0F0F0F0,
+                     0x7FFFFFFF, 0x12345678], dtype=np.uint32)
+    want = [bin(int(v)).count("1") for v in vals]
+    assert ref.popcount32(_t(vals)).tolist() == want
+
+
+# ---------------------------------------------------------------- ADC (2, 4)
+
+@pytest.mark.parametrize("sqrt", [True, False])
+@pytest.mark.parametrize("b,m1,n,d", [(3, 9, 37, 20), (2, 33, 300, 128),
+                                      (1, 5, 1, 3)])
+def test_adc_batch_ref_equals_jax(b, m1, n, d, sqrt):
+    rng = np.random.default_rng(b * 1000 + n + d)
+    tables = _tables(rng, b, m1, d)
+    codes = rng.integers(0, m1, size=(b, n, d)).astype(np.int32)
+    want = np.asarray(jadc.adc_lb_distances_batch(
+        jnp.asarray(tables), jnp.asarray(codes), interpret=True, sqrt=sqrt))
+    got = ref.adc_lb_batch_ref(torch.from_numpy(tables),
+                               torch.from_numpy(codes), sqrt=sqrt)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=ADC_RTOL_JAX, atol=0)
+    via_ops = ops.adc_batch(torch.from_numpy(tables), torch.from_numpy(codes),
+                            sqrt=sqrt)
+    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("sqrt", [True, False])
+def test_adc_single_table_view_equals_jax(sqrt):
+    rng = np.random.default_rng(11)
+    table = _tables(rng, 1, 17, 24)[0]
+    codes = rng.integers(0, 17, size=(45, 24)).astype(np.int32)
+    want = np.asarray(jadc.adc_lb_distances(
+        jnp.asarray(table), jnp.asarray(codes), interpret=True, sqrt=sqrt))
+    np.testing.assert_allclose(
+        ref.adc_lb_ref(torch.from_numpy(table), torch.from_numpy(codes),
+                       sqrt=sqrt).numpy(), want, rtol=ADC_RTOL_JAX, atol=0)
+    np.testing.assert_allclose(
+        ops.adc_distances(torch.from_numpy(table), torch.from_numpy(codes),
+                          sqrt=sqrt).numpy(), want, rtol=ADC_RTOL_JAX, atol=0)
+
+
+# ------------------------------------------------------------- ADC direct (2b)
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_adc_direct_ref_equals_jax(dtype):
+    rng = np.random.default_rng(21)
+    qt, bnd, codes, sel = _direct_inputs(rng, qn=4, p=3, n_max=50, s=12,
+                                         d=10, m1=17, dtype=dtype)
+    qcell = np.asarray(jdp.query_cells(jnp.asarray(qt), jnp.asarray(bnd)))
+    kept = codes[np.arange(3)[None, :, None], sel]          # (Q, P, S, d)
+    want = np.asarray(jdp.adc_lb_direct(jnp.asarray(qt), jnp.asarray(qcell),
+                                        jnp.asarray(bnd), jnp.asarray(kept)))
+    tq, tb = torch.from_numpy(qt), torch.from_numpy(bnd)
+    tcell = dataplane.query_cells(tq, tb)
+    np.testing.assert_array_equal(tcell.numpy(), qcell)
+    got = ref.adc_direct_ref(tq, tcell, tb, torch.from_numpy(codes),
+                             torch.from_numpy(sel))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=ADC_RTOL_JAX, atol=0)
+    twin = dataplane.adc_lb_direct(tq, tcell, tb, torch.from_numpy(kept))
+    np.testing.assert_array_equal(twin.numpy(), got.numpy())
+    via_ops = ops.adc_direct(tq, tcell, tb, torch.from_numpy(codes),
+                             torch.from_numpy(sel))
+    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+def test_cpu_dispatch_launches_no_kernel():
+    rng = np.random.default_rng(5)
+    before = ops.launch_counts()
+    q, db = _words(rng, (2, 2, 4)), _words(rng, (2, 9, 4))
+    ops.hamming_stacked(_t(q), _t(db))
+    tables = _tables(rng, 2, 5, 4)
+    ops.adc_batch(torch.from_numpy(tables),
+                  torch.zeros((2, 3, 4), dtype=torch.int32))
+    assert ops.launch_counts() == before
