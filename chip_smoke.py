@@ -6,10 +6,27 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (sm_90a), then drives the port's main path — filtered top-k search
-(host Stage 1–2 → Hamming prune → ADC lower bounds → refine → merge) —
-through ``SquashIndex.search(backend="torch")`` on the card:
+``nvcc`` (sm_90a), then drives the port's paths on the card:
 
+* LM check: ``mamba2-370m`` at full width and depth (48 layers, d_model
+  1024, vocab 50,280; random weights from a seed, drawn on the CPU and
+  copied to the card) on 1 request of 512 tokens (2 chunks of 256) plus 8
+  greedy tokens, through the port's ``DecoderLM.prefill`` and ``Engine``
+  once on the CPU (plain versions) and once on the card (kernels).
+  Prefill logits, final SSM states and conv caches must agree within
+  5e-3 of their largest magnitude: the f32 card run lies 3.5e-4-6.5e-4
+  from the CPU (the intra-chunk decay ``exp(cs_l - cs_s)`` takes
+  differences of cumulative sums that reach |cs| ~ 1e3-1e4 in the
+  fast-decaying heads, and the two sides round them differently), and a
+  control prefill on the card with TF32 matrix products lies 5.8e-2-6.8e-2
+  from it; the check fails unless the control exceeds the tolerance. Token
+  agreement and the first divergence are reported.
+  The SSD intra-chunk kernel must launch once per layer per prefill.
+* LM serve: ``repro_torch.launch.serve``'s path on the card, 8 requests ×
+  2,048-token prompts (8 chunks at the published ``ssm_chunk`` 256) and 32
+  new tokens: prefill ms, decode ms per token, tokens/s; then one prefill
+  and one decode step at that shape under ``torch.profiler`` (device time
+  by kernel).
 * Path A (direct Stage 4, the default formulation): the SIFT1M-shaped
   synthetic dataset (1,000,000 × 128, 4 attributes of cardinality 16, the
   §5.1 predicates at ≈8 % joint selectivity), P=10, b=4d, S=8 and
@@ -21,13 +38,20 @@ through ``SquashIndex.search(backend="torch")`` on the card:
   ``max_bits_per_dim=5`` (M+1 = 33); float64 ids must equal NumPy's. Its
   host index build runs in a spawned worker process beside Path A's, so
   the two builds take the time of the longer one.
+* Segment extraction: every Path A partition's packed segments through
+  ``kernels.ops.extract_codes`` on the card must equal its stored codes
+  exactly.
 * Kernels: each CUDA kernel against its plain PyTorch version at the
-  paths' shapes (Hamming exact; ADC rtol 1e-5, atol 0: f32 sums of ≤ d
-  non-negative terms in another order), with its time, the plain
-  version's time and its bound on the card.
+  paths' shapes (Hamming and extraction exact; ADC rtol 1e-5, atol 0: f32
+  sums of ≤ d non-negative terms in another order; SSD intra-chunk rtol
+  1e-4, atol 1e-5 · max |y|: f32 sums of up to lc · N products and of
+  cumulative sums in another order; held with fast decay and with slow
+  decay, where every s-tile behind a row tile carries weight), with its
+  time, the plain version's time and its bound on the card.
 
-Launch counters are set to 0 just before each path's searches and read just
-after; every kernel must have launched on the path that runs it. Every
+Launch counters are set to 0 just before each path (LM serve, each search
+path, the extraction) and read just after; every kernel must have launched
+on the path that runs it. Every
 check raises on failure, so the script exits non-zero. The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -39,6 +63,7 @@ numpy. Imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import multiprocessing
@@ -55,6 +80,10 @@ ADC_RTOL = 1e-5                # f32 sums of ≤ d non-negative terms, reordered
 K = 10
 NUM_QUERIES = 64
 SLICE_Q = 8                    # queries of the direct kernel's plain check
+LM_ARCH = "mamba2-370m"
+LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 8, 2048, 32
+LM_TOL = 5e-3                  # of the largest |value|: see the docstring
+SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
 
 
 def emit(obj) -> None:
@@ -328,6 +357,214 @@ def run_path(name, ds, rows, index, preds, *, check_f32: bool,
     return counts
 
 
+# --------------------------------------------------------- language model
+
+def _first_divergence(a, b):
+    """[request, token] of the first differing token, or None."""
+    import numpy as np
+
+    idx = np.argwhere(a != b)
+    return idx[0].tolist() if idx.size else None
+
+
+def lm_check(prompt_len: int = 512, new_tokens: int = 8):
+    """The full-size model on the CPU (plain versions) and on the card;
+    returns the card's model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model_cpu = T.init_params(cfg, seed=0)
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, prompt_len), dtype=np.int32)
+    tokens = torch.from_numpy(prompts).long()
+
+    t0 = time.perf_counter()
+    logits_c, caches_c = model_cpu.prefill(tokens)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits_g, caches_g = model_gpu.prefill(tokens.cuda())
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()["ssd_intra"]
+
+    # Control: the card's prefill again with TF32 matrix products (about 3
+    # decimal digits). The tolerance must tell it from the f32 run.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        logits_t, caches_t = model_gpu.prefill(tokens.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    result = {"phase": "lm_check", "arch": cfg.name,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "chunk": cfg.ssm_chunk,
+              "prompt_len": prompt_len, "init_s": init_s,
+              "cpu_prefill_s": cpu_s, "card_prefill_s": gpu_s,
+              "ssd_intra_launches_per_prefill": prefill_launches,
+              "tolerance": f"max |card - cpu| <= {LM_TOL} * max |cpu|"}
+    ok, caught = True, False
+    for name, c, g, t in (
+            ("logits", logits_c, logits_g, logits_t),
+            ("ssm_states", caches_c["blocks"]["state"],
+             caches_g["blocks"]["state"], caches_t["blocks"]["state"]),
+            ("conv_caches", caches_c["blocks"]["conv"],
+             caches_g["blocks"]["conv"], caches_t["blocks"]["conv"])):
+        g, t = g.cpu(), t.cpu()
+        err = float((g - c).abs().max())
+        err_t = float((t - c).abs().max())
+        scale = float(c.abs().max())
+        finite = bool(torch.isfinite(g).all())
+        result[f"{name}_max_abs_err"] = err
+        result[f"{name}_max_abs"] = scale
+        result[f"{name}_rel_err"] = err / scale
+        result[f"{name}_tf32_control_rel_err"] = err_t / scale
+        ok = ok and finite and err <= LM_TOL * scale
+        caught = caught or err_t > LM_TOL * scale
+    del caches_c, caches_g, caches_t
+
+    eng_c = Engine(cfg, model_cpu, ServeConfig(max_new_tokens=new_tokens),
+                   device="cpu")
+    eng_g = Engine(cfg, model_gpu, ServeConfig(max_new_tokens=new_tokens))
+    out_c = eng_c.generate(prompts)
+    ops.reset_launch_counts()
+    out_g = eng_g.generate(prompts)
+    gen_launches = ops.launch_counts()["ssd_intra"]
+    result.update({
+        "new_tokens": new_tokens, "tokens_cpu": out_c.tolist(),
+        "tokens_card": out_g.tolist(),
+        "token_agreement": float(np.mean(out_c == out_g)),
+        "first_divergence": _first_divergence(out_c, out_g),
+        "ssd_intra_launches_per_generate": gen_launches})
+    emit(result)
+    if not ok:
+        raise AssertionError("lm_check: card and CPU prefill disagree beyond "
+                             f"{LM_TOL} of the largest magnitude")
+    if not caught:
+        raise AssertionError(f"lm_check: a tolerance of {LM_TOL} does not tell "
+                             "the card's TF32 prefill from its f32 prefill")
+    if prefill_launches != cfg.num_layers or gen_launches != cfg.num_layers:
+        raise AssertionError(
+            f"lm_check: ssd_intra launched {prefill_launches} / {gen_launches} "
+            f"times per prefill, expected {cfg.num_layers} (one per layer)")
+    return model_gpu
+
+
+def _device_kernels(prof):
+    """(device µs, launches, name) of each CUDA kernel in a profile."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def lm_profile(model, requests: int, prompt_len: int):
+    """Device time by kernel of one prefill and of one decode step at the
+    serve shape (``torch.profiler``), beside their host-clock times."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (requests, prompt_len))).cuda()
+    logits, caches = model.prefill(tokens)                  # warm-up
+    model.decode_step(logits[:, 0].argmax(-1)[:, None], caches)
+    result = {"phase": "lm_profile", "requests": requests,
+              "prompt_len": prompt_len}
+    for step in ("prefill", "decode_step"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if step == "prefill":
+                logits, caches = model.prefill(tokens)
+            else:
+                model.decode_step(logits[:, 0].argmax(-1)[:, None], caches)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _device_kernels(prof)
+        result[step] = {
+            "host_wall_ms": wall_ms,
+            "device_kernel_ms": sum(r[0] for r in rows) / 1e3,
+            "kernel_launches": sum(r[1] for r in rows),
+            "top_kernels": [{"name": k[:100], "ms": us / 1e3, "count": n}
+                            for us, n, k in rows[:12]]}
+    emit(result)
+
+
+def lm_serve(requests: int, prompt_len: int, new_tokens: int):
+    """``launch.serve``'s path on the card; returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    vocab = get_config(LM_ARCH).vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = launch_serve.serve(LM_ARCH, requests=requests, prompt_len=prompt_len,
+                             new_tokens=new_tokens, device="cuda", seed=0)
+    counts = ops.launch_counts()
+    out = rep.pop("tokens")
+    rep.update({"phase": "lm_serve", "launches": counts,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tokens_shape": list(out.shape),
+                "tokens_in_vocab": bool(((out >= 0) & (out < vocab)).all()),
+                "sample_continuation": out[0][:12].tolist()})
+    emit(rep)
+    if out.shape != (requests, new_tokens) or not rep["tokens_in_vocab"]:
+        raise AssertionError("lm_serve: malformed generated tokens")
+    if counts["ssd_intra"] <= 0:
+        raise AssertionError("lm_serve: ssd_intra never launched")
+    return counts
+
+
+def extract_path(index):
+    """Every partition's packed segments through ``ops.extract_codes`` on
+    the card; each must equal the partition's stored codes exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    packed = [torch.from_numpy(np.ascontiguousarray(part.packed)).cuda()
+              for part in index.parts]
+    ops.reset_launch_counts()
+    outs = [ops.extract_codes(seg, part.layout)
+            for seg, part in zip(packed, index.parts)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    equal = [bool(torch.equal(out.cpu(), torch.from_numpy(
+        part.codes.astype(np.int32)))) for out, part in zip(outs, index.parts)]
+    emit({"phase": "extract", "partitions": len(equal),
+          "rows": int(sum(part.packed.shape[0] for part in index.parts)),
+          "G": int(index.parts[0].packed.shape[1]),
+          "seg_bits": index.parts[0].layout.seg_bits,
+          "d": index.parts[0].layout.d, "equal_stored_codes": equal,
+          "launches": counts})
+    if not all(equal):
+        raise AssertionError("extract: kernel codes differ from the stored "
+                             "codes")
+    if counts["extract_codes"] <= 0:
+        raise AssertionError("extract: extract_codes never launched")
+    return packed, counts
+
+
 # ----------------------------------------------------------------- kernels
 
 def stage_inputs(index, queries, preds, dtype):
@@ -366,7 +603,10 @@ def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms,
             "bytes": float(nbytes), **extra}
 
 
-def check_kernels(index_a, index_b, queries, preds, launches):
+def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
+                  ssd_shape):
+    """Every kernel against its plain version; the ``kernels`` line's
+    entries in the order 1, 2b, 3 (view), 2, 4 (view), 5, 6."""
     import torch
 
     from repro_torch.core import dataplane
@@ -390,10 +630,18 @@ def check_kernels(index_a, index_b, queries, preds, launches):
         4 * (qn * p * g + p * n * g + qn * p * n), 3 * qn * p * n * g,
         shape={"Q": qn, "P": p, "N": n, "G": g}, tolerance="exact"))
     # view 3: packed_hamming = kernel 1 at Q = P = 1
-    v3 = hamming.packed_hamming(qbits[0, 0].contiguous(),
-                                stacked.low_packed[0].contiguous())
-    if not torch.equal(v3, ref.hamming_ref(qbits[0, 0], stacked.low_packed[0])):
+    q1 = qbits[0, 0].contiguous()
+    db1 = stacked.low_packed[0].contiguous()
+    v3 = hamming.packed_hamming(q1, db1)
+    if not torch.equal(v3, ref.hamming_ref(q1, db1)):
         raise AssertionError("packed_hamming view differs from hamming_ref")
+    entries.append(kernel_entry(
+        "packed_hamming", "src/repro_torch/kernels/csrc/hamming.cu",
+        "src/repro/kernels/hamming.py:45", 0, 0,
+        cuda_ms(lambda: hamming.packed_hamming(q1, db1), 20),
+        cuda_ms(lambda: ref.hamming_ref(q1, db1), 3),
+        4 * (g + n * g + n), 3 * n * g, shape={"N": n, "G": g},
+        tolerance="exact", path="none: kernel 1 at Q = P = 1"))
 
     # --- kernel 2b (direct) at Path A's shapes, both float widths -------
     m1 = stacked.boundaries.shape[1]
@@ -456,10 +704,19 @@ def check_kernels(index_a, index_b, queries, preds, launches):
     torch.testing.assert_close(sq_k, sq_p, rtol=ADC_RTOL, atol=0)
     err = max(err, float((sq_k - sq_p).abs().max()))
     # view 4: adc_lb_distances = kernel 2 at B = 1
-    v4 = adc_lookup.adc_lb_distances(tables[0].contiguous(),
-                                     codes[0].contiguous())
-    torch.testing.assert_close(v4, ref.adc_lb_ref(tables[0], codes[0]),
-                               rtol=ADC_RTOL, atol=0)
+    t1, c1 = tables[0].contiguous(), codes[0].contiguous()
+    v4 = adc_lookup.adc_lb_distances(t1, c1)
+    v4_p = ref.adc_lb_ref(t1, c1)
+    torch.testing.assert_close(v4, v4_p, rtol=ADC_RTOL, atol=0)
+    entries.append(kernel_entry(
+        "adc_lb_distances", "src/repro_torch/kernels/csrc/adc_lookup.cu",
+        "src/repro/kernels/adc_lookup.py:59", 0,
+        float((v4 - v4_p).abs().max()),
+        cuda_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20),
+        cuda_ms(lambda: ref.adc_lb_ref(t1, c1), 3),
+        4 * (m1 * d + s * d + s), s * d, shape={"M+1": m1, "N": s, "d": d},
+        tolerance=f"rtol={ADC_RTOL}, atol=0",
+        path="none: kernel 2 at B = 1"))
     b = qn * p
     entries.append(kernel_entry(
         "adc_batch", "src/repro_torch/kernels/csrc/adc_lookup.cu",
@@ -471,7 +728,114 @@ def check_kernels(index_a, index_b, queries, preds, launches):
         tolerance=f"rtol={ADC_RTOL}, atol=0"))
     emit({"phase": "views", "packed_hamming": "equal",
           "adc_lb_distances": "within tolerance"})
+    del tables, codes, out_k, out_p, sq_k, sq_p, stacked, sel, qt
+    entries.append(check_extract(index_a, packed_a, launches))
+    entries.append(check_ssd(ssd_shape, launches))
     return entries
+
+
+def check_extract(index_a, packed_a, launches):
+    """Kernel 5 on every Path A partition against its plain version, exact."""
+    import torch
+
+    from repro_torch.kernels import bitpack, ref
+
+    parts = index_a.parts
+    for seg, part in zip(packed_a, parts):
+        if not torch.equal(bitpack.extract_codes(seg, part.layout),
+                           ref.extract_ref(seg, part.layout)):
+            raise AssertionError("extract_codes differs from its plain version")
+    rows = sum(seg.shape[0] for seg in packed_a)
+    g = packed_a[0].shape[1]
+    d = parts[0].layout.d
+    pieces = sum(len(plan) for plan in parts[0].layout.plans)
+
+    def sweep():
+        return [bitpack.extract_codes(seg, part.layout)
+                for seg, part in zip(packed_a, parts)]
+
+    def sweep_uncached():                 # the plan built and uploaded anew
+        out = []
+        for seg, part in zip(packed_a, parts):
+            bitpack._plan.cache_clear()
+            out.append(bitpack.extract_codes(seg, part.layout))
+        return out
+
+    return kernel_entry(
+        "extract_codes", "src/repro_torch/kernels/csrc/bitpack.cu",
+        "src/repro/kernels/bitpack.py:51", launches["extract_codes"], 0,
+        cuda_ms(sweep, 10),
+        cuda_ms(lambda: [ref.extract_ref(seg, part.layout)
+                         for seg, part in zip(packed_a, parts)], 2),
+        sum(seg.numel() * seg.element_size() for seg in packed_a) + 4 * rows * d,
+        4 * rows * pieces,
+        shape={"partitions": len(parts), "rows": rows, "G": g, "d": d,
+               "seg_bits": parts[0].layout.seg_bits, "pieces": pieces},
+        tolerance="exact", timed="one sweep over all partitions "
+        "(one launch each)", ms_without_plan_cache=cuda_ms(sweep_uncached, 10),
+        ops_rate="integer ops counted at the f32 rate")
+
+
+def _far_tiles(c_mat, b_mat, da, x, tile=64):
+    """The plain output's part from s-tiles two or more tiles behind the
+    l-tile: what a kernel that skipped them would miss."""
+    import torch
+
+    lc = da.shape[-1]
+    t = torch.arange(lc, device=da.device) // tile
+    far = (t[:, None] - t[None, :]) >= 2
+    cs = torch.cumsum(da, dim=-1)
+    decay = torch.exp(torch.where(far, cs[..., :, None] - cs[..., None, :], 0))
+    decay = torch.where(far, decay, 0)
+    scores = torch.einsum("gln,gsn->gls", c_mat, b_mat)
+    return torch.einsum("gls,ghls,ghsp->ghlp", scores, decay, x)
+
+
+def check_ssd(ssd_shape, launches):
+    """Kernel 6 at the LM serve prefill's shape against its plain version,
+    with fast decay (da ~ -Exp(1), the random-init model's heads; timed)
+    and with slow decay (da ~ -Exp(1) · 1e-3, small dt as trained models
+    run), where the s-tiles far behind each l-tile carry weight."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd
+
+    g, h, lc, nst, pd = ssd_shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c_mat = torch.randn((g, lc, nst), device="cuda", generator=gen)
+    b_mat = torch.randn((g, lc, nst), device="cuda", generator=gen)
+    da = -torch.empty((g, h, lc), device="cuda").exponential_(generator=gen)
+    x = torch.randn((g, h, lc, pd), device="cuda", generator=gen)
+    cases = {}
+    for name, scale in (("fast_decay", 1.0), ("slow_decay", 1e-3)):
+        args = (c_mat, b_mat, da * scale, x)
+        y_k = ssd.ssd_intra(*args)
+        y_p = ref.ssd_intra_ref(*args)
+        y_max = float(y_p.abs().max())
+        torch.testing.assert_close(y_k, y_p, rtol=SSD_RTOL,
+                                   atol=SSD_ATOL_SCALE * y_max)
+        cases[name] = {"max_abs_err": float((y_k - y_p).abs().max()),
+                       "max_abs_ref": y_max,
+                       "far_tiles_max_abs": float(_far_tiles(*args).abs().max())}
+        del y_k, y_p
+    slow = cases["slow_decay"]
+    if slow["far_tiles_max_abs"] <= 1e3 * SSD_ATOL_SCALE * slow["max_abs_ref"]:
+        raise AssertionError("ssd_intra: the slow-decay case does not weigh "
+                             "the far s-tiles")
+    pairs = lc * (lc + 1) // 2
+    return kernel_entry(
+        "ssd_intra", "src/repro_torch/kernels/csrc/ssd.cu",
+        "src/repro/kernels/ssd.py:54", launches["ssd_intra"],
+        max(c["max_abs_err"] for c in cases.values()),
+        cuda_ms(lambda: ssd.ssd_intra(c_mat, b_mat, da, x), 20),
+        cuda_ms(lambda: ref.ssd_intra_ref(c_mat, b_mat, da, x), 3),
+        4 * (2 * g * lc * nst + g * h * lc + 2 * g * h * lc * pd),
+        g * pairs * (2 * nst + h * (3 + 2 * pd)),
+        shape={"G": g, "H": h, "lc": lc, "N": nst, "P": pd}, cases=cases,
+        tolerance=f"rtol={SSD_RTOL}, atol={SSD_ATOL_SCALE} * max |y|",
+        timed="fast decay",
+        ops_counted="causal pairs: scores 2N once per g; per head and pair "
+        "a subtract, an exp and a multiply, and 2P for the output")
 
 
 # -------------------------------------------------------------------- main
@@ -488,6 +852,7 @@ def main(argv=None) -> int:
         raise SystemExit("run chip_smoke.py from the root of a checkout: "
                          f"{src}/repro_torch is missing")
     sys.path.insert(0, src)          # a spawned worker inherits sys.path
+    from repro_torch.configs import get_config
     from repro_torch.core.pipeline import SquashConfig
     from repro_torch.data import synthetic
     from repro_torch.kernels import build
@@ -510,6 +875,11 @@ def main(argv=None) -> int:
              for name, log in build.build_logs().items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": per_lib, "ptxas": ptxas})
+
+    lm_model = lm_check()
+    lm_launches = lm_serve(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
+    lm_profile(lm_model, LM_REQUESTS, LM_PROMPT_LEN)
+    del lm_model
 
     cfg_a = SquashConfig(num_partitions=10, max_bits_per_dim=8,
                          kmeans_iters=4, lloyd_iters=6)
@@ -542,19 +912,29 @@ def main(argv=None) -> int:
     launches_b = run_path("path_b", ds, args.rows_b, index_b, preds,
                           check_f32=False, timed_batches=args.timed_batches)
 
+    packed_a, extract_launches = extract_path(index_a)
+
     launches = {name: launches_a[name] + launches_b[name]
                 for name in launches_a}
     per_path = {"hamming_stacked": launches["hamming_stacked"],
                 "adc_direct": launches_a["adc_direct"],
-                "adc_batch": launches_b["adc_batch"]}
+                "adc_batch": launches_b["adc_batch"],
+                "extract_codes": extract_launches["extract_codes"],
+                "ssd_intra": lm_launches["ssd_intra"]}
     missing = [name for name, n in per_path.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing} (counts A {launches_a}, B "
-                             f"{launches_b})")
+                             f"{launches_b}, extraction {extract_launches}, "
+                             f"LM serve {lm_launches})")
 
+    lm_cfg = get_config(LM_ARCH)
+    heads = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_headdim
+    ssd_shape = (LM_REQUESTS * LM_PROMPT_LEN // lm_cfg.ssm_chunk, heads,
+                 lm_cfg.ssm_chunk, lm_cfg.ssm_state, lm_cfg.ssm_headdim)
     entries = check_kernels(index_a, index_b, ds.queries.astype("float64"),
-                            preds, launches)
+                            preds, {**launches, **per_path}, packed_a,
+                            ssd_shape)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(card, flush=True)

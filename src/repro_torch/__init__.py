@@ -10,9 +10,13 @@ The port imports ``torch`` and numpy only — never ``jax`` and nothing of
   their ctypes wrappers, plain-PyTorch twins (``ref``) and the dispatch layer
   (``ops``): CUDA tensors go to the kernels, CPU tensors to the twins.
 * ``repro_torch.data`` — the synthetic attributed-vector datasets.
-* ``repro_torch.serve`` — the vector-search service facade.
+* ``repro_torch.serve`` — the vector-search service facade and the
+  language-model serving ``Engine``.
+* ``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.launch`` —
+  the LM substrate ported so far: ``mamba2-370m`` (Mamba2 mixer, decoder,
+  ``python -m repro_torch.launch.serve``).
 
-Entry points run on the card: ``SquashIndex.search(backend="torch")`` takes
-``device=None`` meaning ``"cuda"`` and raises when CUDA is absent, unless the
-caller passes ``device="cpu"``.
+Entry points run on the card: ``SquashIndex.search(backend="torch")`` and
+``Engine`` take ``device=None`` meaning ``"cuda"`` and raise when CUDA is
+absent, unless the caller passes ``device="cpu"``.
 """

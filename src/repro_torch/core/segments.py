@@ -5,8 +5,9 @@ S-bit segments: ``G_OSQ = ceil(b / S)`` segments per vector versus ``G_SQ = d``
 fixed slots under standard SQ. Extraction recovers dimension ``j`` of *all*
 rows simultaneously via static shift/mask/OR plans (paper Fig. 3).
 ``build_layout`` / ``pack_codes`` are NumPy copies of the JAX package's
-``repro.core.segments``; the extraction runs as torch ops (the TPU kernel
-``repro.kernels.bitpack.extract_codes`` is not ported yet).
+``repro.core.segments``; the extraction here runs as torch ops and is the
+plain version of the CUDA kernel ``kernels.bitpack.extract_codes`` (the port
+of the TPU kernel ``repro.kernels.bitpack.extract_codes``).
 
 Bit-order convention: global bit position ``p`` (0-based from the start of the
 vector's code stream) lives in segment ``p // S`` at MSB-based offset ``p % S``.

@@ -32,6 +32,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "hamming": "hamming.cu",
     "adc_lookup": "adc_lookup.cu",
+    "bitpack": "bitpack.cu",
+    "ssd": "ssd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

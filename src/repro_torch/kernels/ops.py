@@ -3,9 +3,10 @@
 The counterpart of the JAX package's ``repro.kernels.ops``, with one rule:
 a CUDA tensor goes to the hand-written kernel (which raises if it cannot
 launch), a CPU tensor to the plain version in :mod:`repro_torch.kernels.ref`.
-There is no fallback. ``use_kernel`` overrides the choice for tests only:
-``True`` on a CPU tensor raises in the kernel wrapper, ``False`` on a CUDA
-tensor runs the plain version there.
+There is no fallback. The search-plane ops keep a ``use_kernel`` override
+for tests only: ``True`` on a CPU tensor raises in the kernel wrapper,
+``False`` on a CUDA tensor runs the plain version there. ``extract_codes``
+and ``ssd_intra`` have none: the tensor's device alone decides.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import adc_lookup, hamming, ref
+from repro_torch.core.segments import SegmentLayout
+from repro_torch.kernels import adc_lookup, bitpack, hamming, ref, ssd
 
 __all__ = ["hamming_distances", "hamming_stacked", "adc_distances",
-           "adc_batch", "adc_direct", "launch_counts", "reset_launch_counts"]
+           "adc_batch", "adc_direct", "extract_codes", "ssd_intra",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _kernel(t: torch.Tensor, override: Optional[bool]) -> bool:
@@ -63,12 +66,29 @@ def adc_direct(qt, qcell, boundaries, codes, sel, *,
     return ref.adc_direct_ref(qt, qcell, boundaries, codes, sel)
 
 
+def extract_codes(segments, layout: SegmentLayout):
+    """(N, G) packed S-bit segments → (N, d) int32 codes (S = 32 as int32
+    bit patterns)."""
+    if segments.is_cuda:
+        return bitpack.extract_codes(segments, layout)
+    return ref.extract_ref(segments, layout)
+
+
+def ssd_intra(c_mat, b_mat, da, x):
+    """(G,lc,N)/(G,lc,N)/(G,H,lc)/(G,H,lc,P) f32 → (G,H,lc,P) SSD intra-chunk."""
+    if c_mat.is_cuda:
+        return ssd.ssd_intra(c_mat, b_mat, da, x)
+    return ref.ssd_intra_ref(c_mat, b_mat, da, x)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
     return {
         "hamming_stacked": hamming.launches,
         "adc_batch": adc_lookup.batch_launches,
         "adc_direct": adc_lookup.direct_launches,
+        "extract_codes": bitpack.launches,
+        "ssd_intra": ssd.launches,
     }
 
 
@@ -76,3 +96,5 @@ def reset_launch_counts() -> None:
     hamming.launches = 0
     adc_lookup.batch_launches = 0
     adc_lookup.direct_launches = 0
+    bitpack.launches = 0
+    ssd.launches = 0

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.segments import SegmentLayout, extract_all
+
 __all__ = ["popcount32", "hamming_ref", "hamming_stacked_ref", "adc_lb_ref",
-           "adc_lb_batch_ref", "adc_lb_direct_ref", "adc_direct_ref"]
+           "adc_lb_batch_ref", "adc_lb_direct_ref", "adc_direct_ref",
+           "extract_ref", "ssd_intra_ref"]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -94,3 +97,26 @@ def adc_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
     p = codes.shape[0]
     p_idx = torch.arange(p, device=codes.device)[None, :, None]
     return adc_lb_direct_ref(qt, qcell, boundaries, codes[p_idx, sel])
+
+
+def extract_ref(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
+    """(N, G) packed segments → (N, d) int32 codes (``segments.extract_all``)."""
+    return extract_all(segments, layout)
+
+
+def ssd_intra_ref(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """SSD intra-chunk term of every (batch·chunk, head) block.
+
+    c_mat/b_mat: (G, lc, N); da: (G, H, lc); x: (G, H, lc, P) →
+    (G, H, lc, P). ``exp`` sees only the lower triangle's differences: the
+    upper ones are positive and would overflow, and ``inf · 0`` is NaN.
+    """
+    cs = torch.cumsum(da, dim=-1)                          # (G, H, lc)
+    diff = cs[..., :, None] - cs[..., None, :]             # (G, H, lc, lc)
+    ii = torch.arange(da.shape[-1], device=da.device)
+    tri = ii[:, None] >= ii[None, :]
+    zero = torch.zeros((), dtype=da.dtype, device=da.device)
+    decay = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
+    scores = torch.einsum("gln,gsn->gls", c_mat, b_mat)    # (G, lc, lc)
+    return torch.einsum("gls,ghls,ghsp->ghlp", scores, decay, x)

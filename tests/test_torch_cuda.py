@@ -6,9 +6,12 @@ also runs where those are not installed; on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: Hamming exact (integer sums); ADC ``rtol=1e-5, atol=0`` — f32
-sums of ≤ d non-negative terms added in another order (the kernels add over
-ascending d, ``torch.sum`` in its own order), as ``chip_smoke.py`` states.
+Tolerances: Hamming and segment extraction exact (integer arithmetic);
+ADC ``rtol=1e-5, atol=0`` — f32 sums of ≤ d non-negative terms added in
+another order (the kernels add over ascending d, ``torch.sum`` in its own
+order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
+``atol=1e-5 · max |y|`` — f32 sums of up to lc · N products and of
+cumulative sums taken in another order than the plain version's einsums.
 """
 
 import numpy as np
@@ -18,9 +21,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import dataplane  # noqa: E402
 from repro_torch.core.pipeline import SquashConfig, SquashIndex  # noqa: E402
-from repro_torch.kernels import adc_lookup, hamming, ops, ref  # noqa: E402
+from repro_torch.core import segments  # noqa: E402
+from repro_torch.kernels import adc_lookup, bitpack, hamming, ops, ref, ssd  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 ADC_RTOL = 1e-5
+SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +151,89 @@ def test_search_on_card_equals_numpy(cuda, max_bits):
     table = m1 <= dataplane.ADC_TABLE_MAX_M1
     assert counts["hamming_stacked"] == 1
     assert counts["adc_batch" if table else "adc_direct"] == 1
+
+
+@pytest.mark.parametrize("seg_bits,bits,n", [
+    (8, [4] * 128, 3000),                  # the index's shape: b = 4d, S = 8
+    (8, [3, 9, 1, 7, 12, 0, 5], 777),
+    (16, [12, 16, 2, 9, 0, 11], 1000),
+    (32, [16, 16, 31, 1, 7, 32], 513),     # words with the top bit set
+])
+def test_extract_kernel_equals_plain(cuda, seg_bits, bits, n):
+    rng = np.random.default_rng(n)
+    codes = np.stack([rng.integers(0, 1 << b, size=n) if b
+                      else np.zeros(n, np.int64) for b in bits], axis=1)
+    layout = segments.build_layout(bits, seg_bits=seg_bits)
+    packed = segments.pack_codes(layout, codes)
+    if packed.dtype == np.uint32:
+        packed = packed.view(np.int32)
+    seg = torch.from_numpy(packed).to(cuda)
+    before = bitpack.launches
+    got = ops.extract_codes(seg, layout)
+    assert bitpack.launches == before + 1
+    assert torch.equal(got, ref.extract_ref(seg, layout))
+    # int32 out, as the TPU kernel: a 32-bit code keeps its bit pattern.
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  codes.astype(np.uint32).view(np.int32))
+
+
+def _ssd_inputs(rng, g, h, lc, n, p, da_scale, device):
+    arrays = (rng.normal(size=(g, lc, n)), rng.normal(size=(g, lc, n)),
+              -da_scale * rng.exponential(size=(g, h, lc)),
+              rng.normal(size=(g, h, lc, p)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+def _far_tiles(c_mat, b_mat, da, x, tile=64):
+    """The plain output's part from s-tiles two or more tiles behind the
+    l-tile: what a kernel that skipped them would miss."""
+    lc = da.shape[-1]
+    t = torch.arange(lc, device=da.device) // tile
+    far = (t[:, None] - t[None, :]) >= 2
+    cs = torch.cumsum(da, dim=-1)
+    decay = torch.exp(torch.where(far, cs[..., :, None] - cs[..., None, :], 0))
+    decay = torch.where(far, decay, 0)
+    scores = torch.einsum("gln,gsn->gls", c_mat, b_mat)
+    return torch.einsum("gls,ghls,ghsp->ghlp", scores, decay, x)
+
+
+@pytest.mark.parametrize("g,h,lc,n,p,da_scale", [
+    (2, 2, 16, 8, 8, 1.0), (1, 4, 32, 16, 8, 1.0), (3, 1, 64, 128, 64, 1.0),
+    (2, 3, 8, 4, 4, 1.0),
+    (2, 5, 256, 128, 64, 1.0),             # mamba2-370m's chunk; 5 heads
+    (1, 3, 200, 24, 80, 1.0),              # ragged row and column tiles
+    # The LM serve prefill's shape with slow decay (small dt, as trained
+    # models run): every s-tile behind an l-tile carries weight.
+    (64, 32, 256, 128, 64, 1e-3),
+])
+def test_ssd_intra_kernel_equals_plain(cuda, g, h, lc, n, p, da_scale):
+    args = _ssd_inputs(np.random.default_rng(lc + n), g, h, lc, n, p,
+                       da_scale, cuda)
+    before = ssd.launches
+    got = ops.ssd_intra(*args)
+    assert ssd.launches == before + 1
+    want = ref.ssd_intra_ref(*args)
+    assert torch.isfinite(got).all()
+    atol = SSD_ATOL_SCALE * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=SSD_RTOL, atol=atol)
+    if da_scale < 1:
+        assert float(_far_tiles(*args).abs().max()) > 1e3 * atol
+
+
+def test_ssd_chunked_on_card_equals_cpu(cuda):
+    """The chunked scan with the kernel equals the scan on the CPU."""
+    rng = np.random.default_rng(7)
+    bsz, s, h, p, n, lc = 2, 300, 4, 16, 32, 128
+    arrays = [rng.normal(size=(bsz, s, h, p)),
+              np.abs(rng.normal(size=(bsz, s, h))) + 0.1,
+              -np.abs(rng.normal(size=(h,))) - 0.1,
+              rng.normal(size=(bsz, s, n)), rng.normal(size=(bsz, s, n))]
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in arrays]
+    before = ssd.launches
+    y_c, st_c = ssm.ssd_chunked(*[t.to(cuda) for t in cpu], lc)
+    assert ssd.launches == before + 1
+    y, st = ssm.ssd_chunked(*cpu, lc)
+    torch.testing.assert_close(y_c.cpu(), y, rtol=SSD_RTOL,
+                               atol=SSD_ATOL_SCALE * float(y.abs().max()))
+    torch.testing.assert_close(st_c.cpu(), st, rtol=SSD_RTOL,
+                               atol=SSD_ATOL_SCALE * float(st.abs().max()))

@@ -4,9 +4,10 @@
   and ``repro`` cannot be imported;
 * no module of the port, nor ``chip_smoke.py``, names ``jax`` or ``repro``
   in an import statement;
-* entry points default to the card: without CUDA the torch backend raises
-  (naming ``device="cpu"``) instead of running on the CPU, and the kernel
-  wrappers refuse CPU tensors.
+* entry points default to the card: without CUDA the torch search
+  backend, the LM ``Engine`` and ``python -m repro_torch.launch.serve``
+  raise (naming ``device="cpu"``) instead of running on the CPU, and the
+  kernel wrappers refuse CPU tensors.
 """
 
 import ast
@@ -20,8 +21,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import pipeline  # noqa: E402
-from repro_torch.kernels import adc_lookup, build, hamming, ops  # noqa: E402
+from repro_torch.core import pipeline, segments  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import adc_lookup, bitpack, build, hamming, ops, ref, ssd  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import Engine  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -64,7 +69,7 @@ def test_port_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15      # every module of the slice
+    assert int(out.stdout.strip()) >= 30      # every module of both slices
 
 
 @pytest.mark.parametrize("path", list(_port_files()),
@@ -97,7 +102,23 @@ def test_search_without_device_raises_without_cuda(monkeypatch):
         index.search(vecs[:2], [], k=3, backend="jax")
 
 
-@pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_direct"])
+def test_engine_defaults_to_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("mamba2-370m").reduced(num_layers=1)
+    model = transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model)
+    assert Engine(cfg, model, device="cpu").device == torch.device("cpu")
+
+
+def test_launch_serve_defaults_to_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "mamba2-370m", "--reduced"])
+
+
+@pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_direct",
+                                  "ssd_intra", "extract_codes"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: no quiet CPU fallback."""
     words = torch.zeros((1, 1, 4), dtype=torch.int32)
@@ -108,6 +129,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
         elif call == "adc_batch":
             adc_lookup.adc_batch(torch.zeros((1, 3, 4)),
                                  torch.zeros((1, 2, 4), dtype=torch.int32))
+        elif call == "ssd_intra":
+            ssd.ssd_intra(torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)),
+                          torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8, 4)))
+        elif call == "extract_codes":
+            bitpack.extract_codes(torch.zeros((3, 2), dtype=torch.uint8),
+                                  segments.build_layout([4, 4, 8]))
         else:
             adc_lookup.adc_direct(
                 torch.zeros((1, 1, 4)), torch.zeros((1, 1, 4), dtype=torch.int32),
@@ -128,6 +155,10 @@ def _op_args(name):
                        torch.zeros((1, 1, 4), dtype=torch.int32),
                        torch.zeros((1, 3, 4)), codes,
                        torch.zeros((1, 1, 2), dtype=torch.int64)),
+        "extract_codes": (torch.zeros((3, 2), dtype=torch.uint8),
+                          segments.build_layout([4, 4, 8])),
+        "ssd_intra": (torch.ones((1, 8, 4)), torch.ones((1, 8, 4)),
+                      torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8, 4))),
     }[name]
 
 
@@ -143,6 +174,21 @@ def test_ops_use_kernel_override_reaches_the_wrapper(name):
     # query's own cell give 0.
     expected = 2.0 if name in ("adc_distances", "adc_batch") else 0
     assert torch.all(plain == expected)
+
+
+@pytest.mark.parametrize("name,plain", [("extract_codes", "extract_ref"),
+                                        ("ssd_intra", "ssd_intra_ref")])
+def test_ops_route_cpu_tensors_to_the_plain_version(name, plain):
+    """``extract_codes`` and ``ssd_intra`` take no override: a CPU tensor
+    goes to the plain version and launches nothing."""
+    args = _op_args(name)
+    before = ops.launch_counts()
+    got = getattr(ops, name)(*args)
+    assert torch.equal(got, getattr(ref, plain)(*args))
+    assert torch.all(got == 0)
+    assert ops.launch_counts() == before
+    with pytest.raises(TypeError):
+        getattr(ops, name)(*args, use_kernel=True)
 
 
 def test_kernel_build_lands_in_the_checkout():

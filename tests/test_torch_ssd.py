@@ -1,0 +1,97 @@
+"""The port's SSD intra-chunk plain version and chunked scan against the JAX
+package's, on the CPU.
+
+* ``kernels.ref.ssd_intra_ref`` against the Pallas kernel
+  ``ops.ssd_intra(..., interpret=True)`` and ``ref.ssd_intra_ref`` on the
+  shapes of ``tests/test_ssd_kernel.py``;
+* ``models.ssm.ssd_chunked`` (intra-chunk term through ``ops.ssd_intra``)
+  against the reference ``ssd_chunked``: several chunks, S not a multiple
+  of the chunk, a non-zero initial state.
+
+Tolerances: for the intra-chunk block ``rtol = 1e-5`` and ``atol = 4e-6 ·
+max |y|`` — float32 sums of up to lc · N products taken in another order,
+whose rounding grows with the outputs' magnitude (|y| reaches ~60 at
+N = 128); ``rtol = atol = 1e-4`` for the whole scan, as the reference's
+scan-vs-kernel test (the inter-chunk einsums and cumulative sums add
+reordered float32 sums).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.models import ssm as jax_ssm  # noqa: E402
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+SHAPES = [(2, 2, 16, 8, 8), (1, 4, 32, 16, 8), (3, 1, 64, 128, 64),
+          (2, 3, 8, 4, 4)]
+
+
+def _intra_inputs(g, h, lc, n, p):
+    rng = np.random.default_rng(g * 1000 + h)
+    c = rng.normal(size=(g, lc, n)).astype(np.float32)
+    b = rng.normal(size=(g, lc, n)).astype(np.float32)
+    da = (-np.abs(rng.normal(size=(g, h, lc)))).astype(np.float32)
+    x = rng.normal(size=(g, h, lc, p)).astype(np.float32)
+    return c, b, da, x
+
+
+@pytest.mark.parametrize("g,h,lc,n,p", SHAPES)
+@pytest.mark.parametrize("reference", ["pallas_interpret", "jnp_ref"])
+def test_ssd_intra_ref_matches_jax(g, h, lc, n, p, reference):
+    arrays = _intra_inputs(g, h, lc, n, p)
+    if reference == "pallas_interpret":
+        want = jax_ops.ssd_intra(*map(jnp.asarray, arrays), interpret=True)
+    else:
+        want = jax_ref.ssd_intra_ref(*map(jnp.asarray, arrays))
+    got = ref.ssd_intra_ref(*map(torch.from_numpy, arrays))
+    assert got.shape == (g, h, lc, p) and got.dtype == torch.float32
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=4e-6 * np.abs(want).max())
+
+
+def test_ops_ssd_intra_takes_the_plain_version_on_cpu():
+    tensors = [torch.from_numpy(a) for a in _intra_inputs(2, 3, 8, 4, 4)]
+    before = ops.launch_counts()["ssd_intra"]
+    assert torch.equal(ops.ssd_intra(*tensors), ref.ssd_intra_ref(*tensors))
+    assert ops.launch_counts()["ssd_intra"] == before
+
+
+def _scan_inputs(seed, bsz, s, h, p, n):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(bsz, s, h, p)).astype(np.float32),
+            (np.abs(rng.normal(size=(bsz, s, h))) + 0.1).astype(np.float32),
+            (-np.abs(rng.normal(size=(h,))) - 0.1).astype(np.float32),
+            rng.normal(size=(bsz, s, n)).astype(np.float32),
+            rng.normal(size=(bsz, s, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("s,lc,with_state", [
+    (48, 16, False),      # three chunks
+    (37, 16, False),      # S not a multiple of the chunk (padded)
+    (40, 16, True),       # non-zero initial state
+    (12, 64, False),      # one chunk shorter than the chunk length
+])
+def test_ssd_chunked_matches_jax(s, lc, with_state):
+    bsz, h, p, n = 2, 3, 8, 16
+    arrays = _scan_inputs(s + lc, bsz, s, h, p, n)
+    init = (np.random.default_rng(1).normal(size=(bsz, h, p, n))
+            .astype(np.float32) if with_state else None)
+    want_y, want_st = jax_ssm.ssd_chunked(
+        *map(jnp.asarray, arrays), lc,
+        init_state=None if init is None else jnp.asarray(init))
+    got_y, got_st = ssm.ssd_chunked(
+        *map(torch.from_numpy, arrays), lc,
+        init_state=None if init is None else torch.from_numpy(init))
+    assert got_y.shape == (bsz, s, h, p) and got_st.shape == (bsz, h, p, n)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_st.numpy(), np.asarray(want_st),
+                               rtol=1e-4, atol=1e-4)
