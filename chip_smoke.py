@@ -43,11 +43,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   exactly.
 * Kernels: each CUDA kernel against its plain PyTorch version at the
   paths' shapes (Hamming and extraction exact; ADC rtol 1e-5, atol 0: f32
-  sums of ≤ d non-negative terms in another order; SSD intra-chunk rtol
-  1e-4, atol 1e-5 · max |y|: f32 sums of up to lc · N products and of
-  cumulative sums in another order; held with fast decay and with slow
-  decay, where every s-tile behind a row tile carries weight), with its
-  time, the plain version's time and its bound on the card.
+  sums of ≤ d non-negative terms in another order, and the direct kernel's
+  +inf exactly on the slots past each pair's keep, with Path A's keep and
+  with whole and dead pairs put in; SSD intra-chunk rtol 1e-4, atol 1e-5 ·
+  max |y|: f32 sums of up to lc · N products in another order; held on the
+  strided views ``ssm.ssd_chunked`` passes and on contiguous copies, with
+  fast decay and with slow decay, where every s-tile behind a row tile
+  carries weight), with its device time (launches queued behind a spin of
+  the card, CUDA events), the plain version's time and its bound on the
+  card; the direct kernel's bound counts what the live slots need.
 
 Launch counters are set to 0 just before each path (LM serve, each search
 path, the extraction) and read just after; every kernel must have launched
@@ -76,6 +80,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core rate
 ADC_RTOL = 1e-5                # f32 sums of ≤ d non-negative terms, reordered
 K = 10
 NUM_QUERIES = 64
@@ -84,6 +89,7 @@ LM_ARCH = "mamba2-370m"
 LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 8, 2048, 32
 LM_TOL = 5e-3                  # of the largest |value|: see the docstring
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
+SPIN_CYCLES = 100_000_000      # ~50 ms of the card ahead of timed launches
 
 
 def emit(obj) -> None:
@@ -111,7 +117,8 @@ def card_line() -> str:
 # ---------------------------------------------------------------- timing
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` launches."""
+    """Mean milliseconds of ``fn()`` over ``reps`` calls, CUDA events
+    around the loop: the host's time between launches included."""
     import torch
 
     fn()
@@ -126,9 +133,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` with its launches queued behind
+    a spin of the card, so the kernels run back to back and the host's time
+    between them stays hidden. Fails if the host took longer to queue the
+    launches than the spin lasted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        raise AssertionError(f"queueing {reps} calls took {host_ms:.1f} ms, "
+                             "longer than the spin ahead of them")
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, tf32x3_ops: float = 0.0):
+    """Least ms for the work: bytes at the memory rate, or ``ops`` at the
+    f32 CUDA-core rate plus ``tf32x3_ops`` (f32 products the kernel runs in
+    3xTF32, three tensor-core products each) at the TF32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + 3 * tf32x3_ops / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -472,6 +509,25 @@ def _device_kernels(prof):
     return sorted(rows, reverse=True)
 
 
+def _split(rows):
+    """Device ms by class: matrix products (cuBLAS / CUTLASS GEMMs), kernel
+    6, and elementwise passes and copies (everything else), with the share
+    of the last in PyTorch's non-vectorized (strided) elementwise kernel."""
+    out = {"matrix_products": 0.0, "ssd_intra": 0.0,
+           "elementwise_and_copies": 0.0, "of_which_strided_elementwise": 0.0}
+    for us, _, name in rows:
+        low = name.lower()
+        if "ssd_intra" in low:
+            out["ssd_intra"] += us / 1e3
+        elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas")):
+            out["matrix_products"] += us / 1e3
+        else:
+            out["elementwise_and_copies"] += us / 1e3
+            if name.startswith("void at::native::elementwise_kernel"):
+                out["of_which_strided_elementwise"] += us / 1e3
+    return out
+
+
 def lm_profile(model, requests: int, prompt_len: int):
     """Device time by kernel of one prefill and of one decode step at the
     serve shape (``torch.profiler``), beside their host-clock times."""
@@ -501,6 +557,7 @@ def lm_profile(model, requests: int, prompt_len: int):
             "host_wall_ms": wall_ms,
             "device_kernel_ms": sum(r[0] for r in rows) / 1e3,
             "kernel_launches": sum(r[1] for r in rows),
+            "split_ms": _split(rows),
             "top_kernels": [{"name": k[:100], "ms": us / 1e3, "count": n}
                             for us, n, k in rows[:12]]}
     emit(result)
@@ -578,8 +635,10 @@ def stage_inputs(index, queries, preds, dtype):
     q64, cands, _ = index.select(queries, preds, K)
     stacked = index.stacked(dtype, device)
     p, n_max = stacked.num_partitions, stacked.n_max
-    cand_mask, _ = dataplane.build_cand_arrays(cands, q64.shape[0], p, n_max)
-    keep_s, _ = dataplane.static_counts(n_max, index.config, K)
+    cand_mask, n_cand = dataplane.build_cand_arrays(cands, q64.shape[0], p,
+                                                    n_max)
+    keep, _ = dataplane.stage_counts(n_cand, index.config, K, index.profile)
+    keep_s, _ = dataplane.static_counts(n_max, index.config, K, index.profile)
     q = torch.from_numpy(q64).to(device=device, dtype=dtype)
     qc = q[:, None, :] - stacked.part_mean[None]
     qbits = dataplane.pack_query_bits(
@@ -590,12 +649,12 @@ def stage_inputs(index, queries, preds, dtype):
            + torch.arange(n_max, device=device))
     sel = torch.topk(key, keep_s, dim=-1, largest=False, sorted=True).indices
     qt = torch.einsum("qpd,pde->qpe", qc, stacked.klt).contiguous()
-    return stacked, qbits, sel, qt
+    return stacked, qbits, sel, qt, torch.from_numpy(keep).to(device)
 
 
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms,
-                 nbytes, ops, **extra):
-    b_ms, b_by = bound(nbytes, ops)
+                 nbytes, ops, tf32x3_ops=0.0, **extra):
+    b_ms, b_by = bound(nbytes, ops, tf32x3_ops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
@@ -614,8 +673,8 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
 
     entries = []
     # --- kernel 1 (Hamming) at Path A's shapes, exact ------------------
-    stacked, qbits, sel, qt32 = stage_inputs(index_a, queries, preds,
-                                             torch.float32)
+    stacked, qbits, sel, qt32, keep = stage_inputs(index_a, queries, preds,
+                                                   torch.float32)
     ham_k = hamming.hamming_stacked(qbits, stacked.low_packed)
     ham_p = ref.hamming_stacked_ref(qbits, stacked.low_packed)
     if not torch.equal(ham_k, ham_p):
@@ -625,10 +684,13 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
     entries.append(kernel_entry(
         "hamming_stacked", "src/repro_torch/kernels/csrc/hamming.cu",
         "src/repro/kernels/hamming.py:92", launches["hamming_stacked"], 0,
-        cuda_ms(lambda: hamming.hamming_stacked(qbits, stacked.low_packed), 20),
+        device_ms(lambda: hamming.hamming_stacked(qbits, stacked.low_packed),
+                  20),
         cuda_ms(lambda: ref.hamming_stacked_ref(qbits, stacked.low_packed), 3),
         4 * (qn * p * g + p * n * g + qn * p * n), 3 * qn * p * n * g,
-        shape={"Q": qn, "P": p, "N": n, "G": g}, tolerance="exact"))
+        shape={"Q": qn, "P": p, "N": n, "G": g}, tolerance="exact",
+        call_ms=cuda_ms(
+            lambda: hamming.hamming_stacked(qbits, stacked.low_packed), 20)))
     # view 3: packed_hamming = kernel 1 at Q = P = 1
     q1 = qbits[0, 0].contiguous()
     db1 = stacked.low_packed[0].contiguous()
@@ -638,58 +700,22 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
     entries.append(kernel_entry(
         "packed_hamming", "src/repro_torch/kernels/csrc/hamming.cu",
         "src/repro/kernels/hamming.py:45", 0, 0,
-        cuda_ms(lambda: hamming.packed_hamming(q1, db1), 20),
+        device_ms(lambda: hamming.packed_hamming(q1, db1), 20),
         cuda_ms(lambda: ref.hamming_ref(q1, db1), 3),
         4 * (g + n * g + n), 3 * n * g, shape={"N": n, "G": g},
-        tolerance="exact", path="none: kernel 1 at Q = P = 1"))
+        tolerance="exact", path="none: kernel 1 at Q = P = 1",
+        call_ms=cuda_ms(lambda: hamming.packed_hamming(q1, db1), 20)))
 
     # --- kernel 2b (direct) at Path A's shapes, both float widths -------
-    m1 = stacked.boundaries.shape[1]
-    d = qt32.shape[-1]
-    s = sel.shape[-1]
-    qcell = dataplane.query_cells(qt32, stacked.boundaries)
-    args32 = (qt32, qcell, stacked.boundaries, stacked.codes, sel)
-    direct_ms = cuda_ms(lambda: adc_lookup.adc_direct(*args32), 5)
-    sl = slice(0, SLICE_Q)
-    sliced32 = (qt32[sl].contiguous(), qcell[sl].contiguous(),
-                stacked.boundaries, stacked.codes, sel[sl].contiguous())
-    out_k = adc_lookup.adc_direct(*sliced32)
-    out_p = ref.adc_direct_ref(*sliced32)
-    torch.testing.assert_close(out_k, out_p, rtol=ADC_RTOL, atol=0)
-    err = float((out_k - out_p).abs().max())
-    stacked64, _, sel64, qt64 = stage_inputs(index_a, queries, preds,
-                                             torch.float64)
-    qcell64 = dataplane.query_cells(qt64, stacked64.boundaries)
-    sliced64 = (qt64[sl].contiguous(), qcell64[sl].contiguous(),
-                stacked64.boundaries, stacked64.codes, sel64[sl].contiguous())
-    out_k64 = adc_lookup.adc_direct(*sliced64)
-    out_p64 = ref.adc_direct_ref(*sliced64)
-    torch.testing.assert_close(out_k64, out_p64, rtol=ADC_RTOL, atol=0)
-    err = max(err, float((out_k64 - out_p64).abs().max()))
-    rows_needed = torch.unique(
-        sel + torch.arange(p, device=sel.device)[None, :, None] * n).numel()
-    entries.append(kernel_entry(
-        "adc_direct", "src/repro_torch/kernels/csrc/adc_lookup.cu",
-        "src/repro/core/dataplane.py:282", launches["adc_direct"], err,
-        direct_ms, cuda_ms(lambda: ref.adc_direct_ref(*sliced32), 2),
-        4 * (2 * qn * p * d + p * m1 * d + rows_needed * d + qn * p * s)
-        + 8 * qn * p * s,
-        4 * qn * p * s * d,
-        shape={"Q": qn, "P": p, "S": s, "d": d, "M+1": m1,
-               "n_max": n, "dtype": "float32"},
-        plain_queries=SLICE_Q,
-        ms_on_plain_queries=cuda_ms(lambda: adc_lookup.adc_direct(*sliced32),
-                                    5),
-        ms_f64=cuda_ms(lambda: adc_lookup.adc_direct(
-            qt64, qcell64, stacked64.boundaries, stacked64.codes, sel64), 5),
-        gathered_code_bytes=4 * qn * p * s * d,
-        tolerance=f"rtol={ADC_RTOL}, atol=0"))
-    del stacked64, sel64, qt64, qcell64, out_p, out_p64
+    entries.append(check_direct(index_a, queries, preds, launches, stacked,
+                                sel, qt32, keep))
+    del stacked, sel, qt32, keep
 
     # --- kernel 2 (table) at Path B's shapes ---------------------------
-    stacked, _, sel, qt = stage_inputs(index_b, queries, preds, torch.float64)
+    stacked, _, sel, qt, _ = stage_inputs(index_b, queries, preds,
+                                          torch.float64)
     qn, p, s = sel.shape
-    m1 = stacked.boundaries.shape[1]
+    m1, d = stacked.boundaries.shape[1], qt.shape[-1]
     p_idx = torch.arange(p, device=sel.device)[None, :, None]
     codes = stacked.codes[p_idx, sel].reshape(qn * p, s, d)
     tables = dataplane.adc_table_batch(
@@ -712,26 +738,139 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
         "adc_lb_distances", "src/repro_torch/kernels/csrc/adc_lookup.cu",
         "src/repro/kernels/adc_lookup.py:59", 0,
         float((v4 - v4_p).abs().max()),
-        cuda_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20),
+        device_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20),
         cuda_ms(lambda: ref.adc_lb_ref(t1, c1), 3),
         4 * (m1 * d + s * d + s), s * d, shape={"M+1": m1, "N": s, "d": d},
         tolerance=f"rtol={ADC_RTOL}, atol=0",
-        path="none: kernel 2 at B = 1"))
+        path="none: kernel 2 at B = 1",
+        call_ms=cuda_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20)))
     b = qn * p
     entries.append(kernel_entry(
         "adc_batch", "src/repro_torch/kernels/csrc/adc_lookup.cu",
         "src/repro/kernels/adc_lookup.py:127", launches["adc_batch"], err,
-        cuda_ms(lambda: adc_lookup.adc_batch(tables, codes), 10),
+        device_ms(lambda: adc_lookup.adc_batch(tables, codes), 10),
         cuda_ms(lambda: ref.adc_lb_batch_ref(tables, codes), 3),
         4 * (b * m1 * d + b * s * d + b * s), b * s * d,
         shape={"B": b, "M+1": m1, "N": s, "d": d},
-        tolerance=f"rtol={ADC_RTOL}, atol=0"))
+        tolerance=f"rtol={ADC_RTOL}, atol=0",
+        call_ms=cuda_ms(lambda: adc_lookup.adc_batch(tables, codes), 10)))
     emit({"phase": "views", "packed_hamming": "equal",
           "adc_lb_distances": "within tolerance"})
     del tables, codes, out_k, out_p, sq_k, sq_p, stacked, sel, qt
     entries.append(check_extract(index_a, packed_a, launches))
     entries.append(check_ssd(ssd_shape, launches))
     return entries
+
+
+def _edge_keep(keep, s):
+    """``keep`` with whole pairs (keep = S) and dead ones (keep = 0) put
+    in: every visited pair of the first query made whole, the second
+    query's pairs all dead."""
+    edges = keep.clone()
+    edges[0] = keep[0].masked_fill(keep[0] > 0, s)
+    edges[1] = 0
+    return edges
+
+
+def check_direct(index_a, queries, preds, launches, stacked, sel, qt32, keep):
+    """Kernel 2b against its plain version on the first SLICE_Q queries
+    (the plain version gathers a (Q, P, S, d) tensor), with Path A's keep
+    and with whole and dead pairs put in, in f32 and f64: rtol 1e-5, atol
+    0, +inf exactly on dead slots. Timed on all queries at Path A's keep;
+    the bound counts what the live slots need."""
+    import torch
+
+    from repro_torch.core import dataplane
+    from repro_torch.kernels import adc_lookup, ref
+
+    qn, p, s = sel.shape
+    m1, d = stacked.boundaries.shape[1], qt32.shape[-1]
+    n = stacked.n_max
+    sl = slice(0, SLICE_Q)
+    cases, err = {}, 0.0
+
+    def hold(label, args):
+        nonlocal err
+        out_k = adc_lookup.adc_direct(*args)
+        out_p = ref.adc_direct_ref(*args)
+        kp = args[-1]
+        dead = (torch.arange(s, device=kp.device)[None, None, :]
+                >= kp[:, :, None])
+        if not torch.equal(torch.isposinf(out_k), dead):
+            raise AssertionError(f"adc_direct ({label}): +inf does not lie "
+                                 "exactly on the dead slots")
+        torch.testing.assert_close(out_k, out_p, rtol=ADC_RTOL, atol=0)
+        live = ~dead
+        e = float((out_k[live] - out_p[live]).abs().max()) if live.any() \
+            else 0.0
+        cases[label] = {"max_abs_err": e, "live_slots": int(live.sum()),
+                        "dead_pairs": int((kp <= 0).sum()),
+                        "whole_pairs": int((kp >= s).sum())}
+        err = max(err, e)
+
+    qcell32 = dataplane.query_cells(qt32, stacked.boundaries)
+    args32 = (qt32, qcell32, stacked.boundaries, stacked.codes, sel, keep)
+    sliced = [t[sl].contiguous() for t in (qt32, qcell32)]
+    hold("f32", (*sliced, stacked.boundaries, stacked.codes,
+                 sel[sl].contiguous(), keep[sl].contiguous()))
+    hold("f32_edges", (*sliced, stacked.boundaries, stacked.codes,
+                       sel[sl].contiguous(), _edge_keep(keep[sl], s)))
+    direct_ms = device_ms(lambda: adc_lookup.adc_direct(*args32), 20)
+    call_ms = cuda_ms(lambda: adc_lookup.adc_direct(*args32), 20)
+    plain_ms = cuda_ms(lambda: ref.adc_direct_ref(
+        *sliced, stacked.boundaries, stacked.codes, sel[sl].contiguous(),
+        keep[sl].contiguous()), 2)
+    ms_on_plain_queries = device_ms(lambda: adc_lookup.adc_direct(
+        *sliced, stacked.boundaries, stacked.codes, sel[sl].contiguous(),
+        keep[sl].contiguous()), 20)
+
+    # What the live slots need: each live survivor's code row and sel entry,
+    # the boundaries of the partitions they lie in, qt and qcell of live
+    # pairs, keep, and the whole (Q, P, S) output written once.
+    slot = torch.arange(s, device=sel.device)[None, None, :]
+    live = slot < keep[:, :, None]
+    live_slots = int(live.sum())
+    p_idx = torch.arange(p, device=sel.device)[None, :, None].expand_as(sel)
+    live_rows = int(torch.unique((p_idx * n + sel)[live]).numel())
+    live_parts = int((keep > 0).any(dim=0).sum())
+    live_pairs = int((keep > 0).sum())
+    nbytes = (4 * live_rows * d + 8 * live_slots + 4 * live_parts * m1 * d
+              + 8 * live_pairs * d + 4 * qn * p + 4 * qn * p * s)
+    ops_live = 4 * live_slots * d
+    del sliced
+
+    stacked64 = index_a.stacked(torch.float64, torch.device("cuda"))
+    qt64 = torch.einsum("qpd,pde->qpe", torch.from_numpy(queries).cuda()[
+        :, None, :] - stacked64.part_mean[None], stacked64.klt).contiguous()
+    qcell64 = dataplane.query_cells(qt64, stacked64.boundaries)
+    sliced64 = [t[sl].contiguous() for t in (qt64, qcell64)]
+    hold("f64", (*sliced64, stacked64.boundaries, stacked64.codes,
+                 sel[sl].contiguous(), keep[sl].contiguous()))
+    hold("f64_edges", (*sliced64, stacked64.boundaries, stacked64.codes,
+                       sel[sl].contiguous(), _edge_keep(keep[sl], s)))
+    ms_f64 = device_ms(lambda: adc_lookup.adc_direct(
+        qt64, qcell64, stacked64.boundaries, stacked64.codes, sel, keep), 20)
+    call_ms_f64 = cuda_ms(lambda: adc_lookup.adc_direct(
+        qt64, qcell64, stacked64.boundaries, stacked64.codes, sel, keep), 20)
+    del stacked64, qt64, qcell64, sliced64
+    return kernel_entry(
+        "adc_direct", "src/repro_torch/kernels/csrc/adc_lookup.cu",
+        "src/repro/core/dataplane.py:282", launches["adc_direct"], err,
+        direct_ms, plain_ms, nbytes, ops_live,
+        shape={"Q": qn, "P": p, "S": s, "d": d, "M+1": m1, "n_max": n,
+               "dtype": "float32"},
+        redesigned_in=13, pr12={"ms": 2.454, "ms_f64": 2.855,
+                                "bound_ms_every_slot": 0.054,
+                                "from": "PERF.md, chip run of PR 12"},
+        live_slots=live_slots, live_rows=live_rows, live_pairs=live_pairs,
+        live_partitions=live_parts, slots=qn * p * s,
+        bound_counts="live slots: their code rows (unique), sel entries, "
+        "their partitions' boundaries, qt/qcell of live pairs, keep, and "
+        "the whole (Q, P, S) output",
+        plain_queries=SLICE_Q, plain_ms_on="the first SLICE_Q queries",
+        ms_on_plain_queries=ms_on_plain_queries, ms_f64=ms_f64,
+        call_ms=call_ms, call_ms_f64=call_ms_f64, cases=cases,
+        tolerance=f"rtol={ADC_RTOL}, atol=0; +inf exactly on dead slots")
 
 
 def check_extract(index_a, packed_a, launches):
@@ -764,7 +903,7 @@ def check_extract(index_a, packed_a, launches):
     return kernel_entry(
         "extract_codes", "src/repro_torch/kernels/csrc/bitpack.cu",
         "src/repro/kernels/bitpack.py:51", launches["extract_codes"], 0,
-        cuda_ms(sweep, 10),
+        device_ms(sweep, 10),
         cuda_ms(lambda: [ref.extract_ref(seg, part.layout)
                          for seg, part in zip(packed_a, parts)], 2),
         sum(seg.numel() * seg.element_size() for seg in packed_a) + 4 * rows * d,
@@ -772,7 +911,8 @@ def check_extract(index_a, packed_a, launches):
         shape={"partitions": len(parts), "rows": rows, "G": g, "d": d,
                "seg_bits": parts[0].layout.seg_bits, "pieces": pieces},
         tolerance="exact", timed="one sweep over all partitions "
-        "(one launch each)", ms_without_plan_cache=cuda_ms(sweep_uncached, 10),
+        "(one launch each)", call_ms=cuda_ms(sweep, 10),
+        call_ms_without_plan_cache=cuda_ms(sweep_uncached, 10),
         ops_rate="integer ops counted at the f32 rate")
 
 
@@ -791,34 +931,50 @@ def _far_tiles(c_mat, b_mat, da, x, tile=64):
     return torch.einsum("gls,ghls,ghsp->ghlp", scores, decay, x)
 
 
+def ssd_views(conv, da_l, x_l, n):
+    """Kernel 6's arguments as ``ssm.ssd_chunked`` passes them: C and B
+    slices of the (G, lc, d_inner + 2N) conv stream, da (G, lc, H) and x
+    (G, lc, H, P) with the heads innermost, viewed as (G, H, lc[, P])."""
+    d_inner = conv.shape[-1] - 2 * n
+    return (conv[..., d_inner + n:], conv[..., d_inner:d_inner + n],
+            da_l.transpose(1, 2), x_l.transpose(1, 2))
+
+
 def check_ssd(ssd_shape, launches):
     """Kernel 6 at the LM serve prefill's shape against its plain version,
-    with fast decay (da ~ -Exp(1), the random-init model's heads; timed)
-    and with slow decay (da ~ -Exp(1) · 1e-3, small dt as trained models
-    run), where the s-tiles far behind each l-tile carry weight."""
+    on the model's strided views and on contiguous copies, with fast decay
+    (da ~ -Exp(1), the random-init model's heads; timed) and with slow decay
+    (da ~ -Exp(1) · 1e-3, small dt as trained models run), where the
+    s-tiles far behind each l-tile carry weight."""
     import torch
 
     from repro_torch.kernels import ref, ssd
 
     g, h, lc, nst, pd = ssd_shape
     gen = torch.Generator(device="cuda").manual_seed(0)
-    c_mat = torch.randn((g, lc, nst), device="cuda", generator=gen)
-    b_mat = torch.randn((g, lc, nst), device="cuda", generator=gen)
-    da = -torch.empty((g, h, lc), device="cuda").exponential_(generator=gen)
-    x = torch.randn((g, h, lc, pd), device="cuda", generator=gen)
+    conv = torch.randn((g, lc, h * pd + 2 * nst), device="cuda",
+                       generator=gen)
+    da_l = -torch.empty((g, lc, h), device="cuda").exponential_(generator=gen)
+    x_l = torch.randn((g, lc, h, pd), device="cuda", generator=gen)
     cases = {}
     for name, scale in (("fast_decay", 1.0), ("slow_decay", 1e-3)):
-        args = (c_mat, b_mat, da * scale, x)
-        y_k = ssd.ssd_intra(*args)
-        y_p = ref.ssd_intra_ref(*args)
-        y_max = float(y_p.abs().max())
-        torch.testing.assert_close(y_k, y_p, rtol=SSD_RTOL,
-                                   atol=SSD_ATOL_SCALE * y_max)
-        cases[name] = {"max_abs_err": float((y_k - y_p).abs().max()),
-                       "max_abs_ref": y_max,
-                       "far_tiles_max_abs": float(_far_tiles(*args).abs().max())}
-        del y_k, y_p
-    slow = cases["slow_decay"]
+        views = ssd_views(conv, da_l * scale, x_l, nst)
+        dense = [t.contiguous() for t in views]
+        for layout, args in (("strided", views), ("contiguous", dense)):
+            y_k = ssd.ssd_intra(*args)
+            y_p = ref.ssd_intra_ref(*args)
+            y_max = float(y_p.abs().max())
+            torch.testing.assert_close(y_k, y_p, rtol=SSD_RTOL,
+                                       atol=SSD_ATOL_SCALE * y_max)
+            cases[f"{name}_{layout}"] = {
+                "max_abs_err": float((y_k - y_p).abs().max()),
+                "max_abs_ref": y_max}
+            del y_k, y_p
+        cases[f"{name}_contiguous"]["far_tiles_max_abs"] = float(
+            _far_tiles(*dense).abs().max())
+    views = ssd_views(conv, da_l, x_l, nst)       # fast decay, timed
+    dense = [t.contiguous() for t in views]
+    slow = cases["slow_decay_contiguous"]
     if slow["far_tiles_max_abs"] <= 1e3 * SSD_ATOL_SCALE * slow["max_abs_ref"]:
         raise AssertionError("ssd_intra: the slow-decay case does not weigh "
                              "the far s-tiles")
@@ -827,15 +983,22 @@ def check_ssd(ssd_shape, launches):
         "ssd_intra", "src/repro_torch/kernels/csrc/ssd.cu",
         "src/repro/kernels/ssd.py:54", launches["ssd_intra"],
         max(c["max_abs_err"] for c in cases.values()),
-        cuda_ms(lambda: ssd.ssd_intra(c_mat, b_mat, da, x), 20),
-        cuda_ms(lambda: ref.ssd_intra_ref(c_mat, b_mat, da, x), 3),
+        device_ms(lambda: ssd.ssd_intra(*views), 20),
+        cuda_ms(lambda: ref.ssd_intra_ref(*dense), 3),
         4 * (2 * g * lc * nst + g * h * lc + 2 * g * h * lc * pd),
-        g * pairs * (2 * nst + h * (3 + 2 * pd)),
+        g * pairs * h * 3, tf32x3_ops=g * pairs * (2 * nst + h * 2 * pd),
         shape={"G": g, "H": h, "lc": lc, "N": nst, "P": pd}, cases=cases,
         tolerance=f"rtol={SSD_RTOL}, atol={SSD_ATOL_SCALE} * max |y|",
-        timed="fast decay",
-        ops_counted="causal pairs: scores 2N once per g; per head and pair "
-        "a subtract, an exp and a multiply, and 2P for the output")
+        timed="fast decay, on the strided views ssm.ssd_chunked passes",
+        ms_contiguous=device_ms(lambda: ssd.ssd_intra(*dense), 20),
+        call_ms=cuda_ms(lambda: ssd.ssd_intra(*views), 20),
+        redesigned_in=13, pr12={"ms": 1.648, "on": "contiguous inputs",
+                                "from": "PERF.md, chip run of PR 12"},
+        products="mma.sync m16n8k8 TF32 with 3xTF32 compensation",
+        ops_counted="causal pairs: the products (scores 2N once per g, 2P "
+        "per head for the output) at the 3xTF32 tensor-core rate, a third "
+        "of the TF32 peak; per head and pair a subtract, an exp and a "
+        "multiply at the f32 CUDA-core rate")
 
 
 # -------------------------------------------------------------------- main

@@ -375,12 +375,11 @@ def batched_stage345(
     # lax.top_k(-ham) selection, ties by ascending row, in that order.
     key = ham * n_max + torch.arange(n_max, device=dev)
     sel = torch.topk(key, keep_s, dim=-1, largest=False, sorted=True).indices
-    slot = torch.arange(keep_s, device=dev)
-    alive1 = slot[None, None, :] < keep[:, :, None]
     if mark is not None:
         mark("hamming")
 
     # --- Stage 4: ADC lookup-table lower bounds on survivors -------------
+    # Slots s ≥ keep[q, p] are dead: their bound is +inf.
     qt = torch.einsum("qpd,pde->qpe", qc, stacked.klt)          # (Q, P, d)
     d = queries.shape[-1]
     m1 = stacked.boundaries.shape[1]
@@ -393,14 +392,16 @@ def batched_stage345(
             tables.reshape(qn * p, m1, d).to(torch.float32).contiguous(),
             kept_codes.reshape(qn * p, keep_s, d),
         ).reshape(qn, p, keep_s)
+        slot = torch.arange(keep_s, device=dev)
+        lb = torch.where(slot[None, None, :] < keep[:, :, None], lb, inf)
     else:
-        # Tall tables (hot dims of up to 2^max_bits cells): direct gathers, the
-        # survivors' codes read through sel.
+        # Tall tables (hot dims of up to 2^max_bits cells): direct gathers of
+        # the live survivors' codes, read through sel; dead slots come back
+        # +inf from the kernel.
         qt = qt.contiguous()
         qcell = query_cells(qt, stacked.boundaries)
         lb = torch.sqrt(ops.adc_direct(qt, qcell, stacked.boundaries,
-                                       stacked.codes, sel))
-    lb = torch.where(alive1, lb, inf)
+                                       stacked.codes, sel, keep))
     lb_sorted, sel2 = torch.sort(lb, dim=-1, stable=True)
     lb_sorted, sel2 = lb_sorted[..., :take_s], sel2[..., :take_s]
     slot2 = torch.arange(take_s, device=dev)

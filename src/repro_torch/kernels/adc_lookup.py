@@ -6,7 +6,8 @@
   ``adc_lb_distances``), the same kernel at B = 1.
 * :func:`adc_direct` — kernel 2b, the port of
   ``repro/core/dataplane.py::adc_lb_direct`` (Stage 4 for tall tables),
-  reading each survivor's codes through ``sel``.
+  reading each live survivor's codes through ``sel``; slots at or past a
+  pair's ``keep`` are +inf and cost no work.
 
 The wrappers take CUDA tensors only — ``kernels.ops`` routes CPU tensors to
 the plain versions in ``kernels.ref``. ``batch_launches`` and
@@ -22,8 +23,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["adc_batch", "adc_lb_distances", "adc_direct", "batch_launches",
-           "direct_launches", "TABLE_SMEM_BYTES"]
+__all__ = ["adc_batch", "adc_lb_distances", "adc_direct", "adc_direct_with",
+           "bind", "batch_launches", "direct_launches", "TABLE_SMEM_BYTES"]
 
 batch_launches = 0
 direct_launches = 0
@@ -37,16 +38,22 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
-@functools.lru_cache(maxsize=None)
-def _launchers():
-    lib = build.library("adc_lookup")
+def bind(lib: ctypes.CDLL):
+    """The (adc_batch, adc_direct) launch functions of a library built from
+    ``csrc/adc_lookup.cu`` (or from an edited copy of it, as
+    ``tools/kernel_variants.py`` builds), with their C interface declared."""
     batch = lib.adc_batch_launch
     batch.argtypes = [_P, _P, _P, _L, _I, _L, _I, _I, _I, _P]
     batch.restype = _I
     direct = lib.adc_direct_launch
-    direct.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _L, _I, _P]
+    direct.argtypes = [_P] * 8 + [_I, _I, _I, _L, _I, _L, _I, _P]
     direct.restype = _I
     return batch, direct
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers():
+    return bind(build.library("adc_lookup"))
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
@@ -105,13 +112,23 @@ def adc_lb_distances(table: torch.Tensor, codes: torch.Tensor,
 
 
 def adc_direct(qt: torch.Tensor, qcell: torch.Tensor, boundaries: torch.Tensor,
-               codes: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """Squared LB sums of each pair's survivors, read through ``sel``.
+               codes: torch.Tensor, sel: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """Squared LB sums of each pair's live survivors, read through ``sel``.
 
     qt (Q, P, d) f32/f64; qcell (Q, P, d) int32; boundaries (P, M+1, d) in
     qt's dtype; codes (P, n_max, d) int32; sel (Q, P, S) int64 row indices
-    in [0, n_max) → (Q, P, S) f32.
+    in [0, n_max); keep (Q, P) int32 live counts → (Q, P, S) f32,
+    +inf at slots s ≥ keep[q, p].
     """
+    return adc_direct_with(None, qt, qcell, boundaries, codes, sel, keep)
+
+
+def adc_direct_with(launch, qt: torch.Tensor, qcell: torch.Tensor,
+                    boundaries: torch.Tensor, codes: torch.Tensor,
+                    sel: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """:func:`adc_direct` through ``launch``, the second function
+    :func:`bind` returns (None: the port's own)."""
     global direct_launches
     device = qt.device
     floats = (torch.float32, torch.float64)
@@ -120,26 +137,32 @@ def adc_direct(qt: torch.Tensor, qcell: torch.Tensor, boundaries: torch.Tensor,
     _check("boundaries", boundaries, 3, (qt.dtype,), device)
     _check("codes", codes, 3, (torch.int32,), device)
     _check("sel", sel, 3, (torch.int64,), device)
+    _check("keep", keep, 2, (torch.int32,), device)
     qn, p, d = qt.shape
     m1 = boundaries.shape[1]
     n_max = codes.shape[1]
     s = sel.shape[2]
     if (qcell.shape != qt.shape or boundaries.shape[0] != p
             or boundaries.shape[2] != d or codes.shape[0] != p
-            or codes.shape[2] != d or sel.shape[:2] != (qn, p)):
+            or codes.shape[2] != d or sel.shape[:2] != (qn, p)
+            or keep.shape != (qn, p)):
         raise ValueError(
             f"shape mismatch: qt {tuple(qt.shape)}, qcell "
             f"{tuple(qcell.shape)}, boundaries {tuple(boundaries.shape)}, "
-            f"codes {tuple(codes.shape)}, sel {tuple(sel.shape)}")
+            f"codes {tuple(codes.shape)}, sel {tuple(sel.shape)}, keep "
+            f"{tuple(keep.shape)}")
     out = torch.empty((qn, p, s), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
+    off = torch.empty(p * qn + 1, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launchers()[1](qt.data_ptr(), qcell.data_ptr(),
-                              boundaries.data_ptr(), codes.data_ptr(),
-                              sel.data_ptr(), out.data_ptr(), qn, p, m1, n_max,
-                              d, s, int(qt.dtype == torch.float64), stream)
+        if launch is None:
+            launch = _launchers()[1]
+        err = launch(qt.data_ptr(), qcell.data_ptr(), boundaries.data_ptr(),
+                     codes.data_ptr(), sel.data_ptr(), keep.data_ptr(),
+                     off.data_ptr(), out.data_ptr(), qn, p, m1, n_max, d, s,
+                     int(qt.dtype == torch.float64), stream)
     if err != 0:
         raise RuntimeError(f"adc_direct launch failed: cudaError {err}")
     direct_launches += 1

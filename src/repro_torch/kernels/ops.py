@@ -1,19 +1,15 @@
 """Dispatch between the CUDA kernels and their plain PyTorch versions.
 
 The counterpart of the JAX package's ``repro.kernels.ops``, with one rule:
-a CUDA tensor goes to the hand-written kernel (which raises if it cannot
-launch), a CPU tensor to the plain version in :mod:`repro_torch.kernels.ref`.
-There is no fallback. The search-plane ops keep a ``use_kernel`` override
-for tests only: ``True`` on a CPU tensor raises in the kernel wrapper,
-``False`` on a CUDA tensor runs the plain version there. ``extract_codes``
-and ``ssd_intra`` have none: the tensor's device alone decides.
+the tensor's device alone decides. A CUDA tensor goes to the hand-written
+kernel (which raises if it cannot launch), a CPU tensor to the plain
+version in :mod:`repro_torch.kernels.ref`. There is no fallback and no
+override.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
-
-import torch
+from typing import Dict
 
 from repro_torch.core.segments import SegmentLayout
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ref, ssd
@@ -23,47 +19,41 @@ __all__ = ["hamming_distances", "hamming_stacked", "adc_distances",
            "launch_counts", "reset_launch_counts"]
 
 
-def _kernel(t: torch.Tensor, override: Optional[bool]) -> bool:
-    return t.is_cuda if override is None else override
-
-
-def hamming_distances(q_packed, db_packed, *, use_kernel: Optional[bool] = None):
+def hamming_distances(q_packed, db_packed):
     """(G,) query words vs (N, G) rows → (N,) int32 Hamming."""
-    if _kernel(q_packed, use_kernel):
+    if q_packed.is_cuda:
         return hamming.packed_hamming(q_packed, db_packed)
     return ref.hamming_ref(q_packed, db_packed)
 
 
-def hamming_stacked(q_packed, db_packed, *, use_kernel: Optional[bool] = None):
+def hamming_stacked(q_packed, db_packed):
     """(Q, P, G) query words vs (P, N, G) stacked rows → (Q, P, N) int32."""
-    if _kernel(q_packed, use_kernel):
+    if q_packed.is_cuda:
         return hamming.hamming_stacked(q_packed, db_packed)
     return ref.hamming_stacked_ref(q_packed, db_packed)
 
 
-def adc_distances(table, codes, *, sqrt: bool = True,
-                  use_kernel: Optional[bool] = None):
+def adc_distances(table, codes, *, sqrt: bool = True):
     """(M+1, d) f32 table + (N, d) codes → (N,) f32 LB distances."""
-    if _kernel(table, use_kernel):
+    if table.is_cuda:
         return adc_lookup.adc_lb_distances(table, codes, sqrt=sqrt)
     return ref.adc_lb_ref(table, codes, sqrt=sqrt)
 
 
-def adc_batch(tables, codes, *, sqrt: bool = True,
-              use_kernel: Optional[bool] = None):
+def adc_batch(tables, codes, *, sqrt: bool = True):
     """(B, M+1, d) f32 tables + (B, N, d) codes → (B, N) f32 LB distances."""
-    if _kernel(tables, use_kernel):
+    if tables.is_cuda:
         return adc_lookup.adc_batch(tables, codes, sqrt=sqrt)
     return ref.adc_lb_batch_ref(tables, codes, sqrt=sqrt)
 
 
-def adc_direct(qt, qcell, boundaries, codes, sel, *,
-               use_kernel: Optional[bool] = None):
+def adc_direct(qt, qcell, boundaries, codes, sel, keep):
     """Direct Stage 4: survivors ``sel`` (Q, P, S) of stacked ``codes``
-    (P, n_max, d) → (Q, P, S) f32 squared LB sums."""
-    if _kernel(qt, use_kernel):
-        return adc_lookup.adc_direct(qt, qcell, boundaries, codes, sel)
-    return ref.adc_direct_ref(qt, qcell, boundaries, codes, sel)
+    (P, n_max, d) → (Q, P, S) f32 squared LB sums, +inf at slots
+    s ≥ ``keep`` (Q, P)."""
+    if qt.is_cuda:
+        return adc_lookup.adc_direct(qt, qcell, boundaries, codes, sel, keep)
+    return ref.adc_direct_ref(qt, qcell, boundaries, codes, sel, keep)
 
 
 def extract_codes(segments, layout: SegmentLayout):

@@ -87,16 +87,19 @@ def adc_lb_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
 
 def adc_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
                    boundaries: torch.Tensor, codes: torch.Tensor,
-                   sel: torch.Tensor) -> torch.Tensor:
+                   sel: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Plain version of the direct Stage 4 kernel (kernel 2b).
 
     codes: (P, n_max, d) int32 stacked codes; sel: (Q, P, S) rows of each
-    (query, partition) pair's survivors → (Q, P, S) f32 squared LB. Gathers
-    the survivors' codes, then :func:`adc_lb_direct_ref`.
+    (query, partition) pair's survivors; keep: (Q, P) live counts →
+    (Q, P, S) f32 squared LB, +inf at slots s ≥ keep[q, p]. Gathers the
+    survivors' codes, then :func:`adc_lb_direct_ref`.
     """
     p = codes.shape[0]
     p_idx = torch.arange(p, device=codes.device)[None, :, None]
-    return adc_lb_direct_ref(qt, qcell, boundaries, codes[p_idx, sel])
+    lb = adc_lb_direct_ref(qt, qcell, boundaries, codes[p_idx, sel])
+    slot = torch.arange(sel.shape[-1], device=sel.device)
+    return torch.where(slot < keep[:, :, None], lb, float("inf"))
 
 
 def extract_ref(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:

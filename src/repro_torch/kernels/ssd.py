@@ -5,6 +5,11 @@ Mamba2 intra-chunk term ``(tril(exp(segsum(da))) ∘ C Bᵀ) · x`` of every
 (batch·chunk, head) block. The wrapper takes CUDA tensors only —
 ``kernels.ops`` routes CPU tensors to ``kernels.ref.ssd_intra_ref``.
 
+The kernel reads its operands through element strides, so the model passes
+views of its own tensors (:func:`kernel_strides` says what it accepts), and
+the output is a ``(G, H, lc, P)`` view of a ``(G, lc, H, P)`` buffer: the
+model's ``(B, S, H, P)`` layout, which it reads back without a copy.
+
 ``launches`` counts the kernel launches of this process (reset it to 0 to
 count a window).
 """
@@ -13,27 +18,52 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["ssd_intra", "launches"]
+__all__ = ["ssd_intra", "ssd_intra_with", "bind", "kernel_strides",
+           "launches"]
 
 launches = 0
 
 _SMEM_LIMIT = 227 * 1024    # dynamic shared memory one H100 block can use
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = build.library("ssd")
-    lib.ssd_intra_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``csrc/ssd.cu`` (or
+    from an edited copy of it, as ``tools/kernel_variants.py`` builds)."""
+    lib.ssd_intra_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     lib.ssd_intra_launch.restype = ctypes.c_int
     lib.ssd_intra_smem_bytes.argtypes = [ctypes.c_int]
     lib.ssd_intra_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(build.library("ssd"))
+
+
+def kernel_strides(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
+                   x: torch.Tensor, out: torch.Tensor) -> Tuple[int, ...]:
+    """The 13 element strides the kernel takes, in its order: C (g, l),
+    B (g, l), da (g, h, l), x (g, h, l), out (g, h, l).
+
+    C, B, x and out must have unit stride over their last dimension (a
+    dimension of size 1 has none to speak of); da may have any strides.
+    """
+    for name, t in (("c_mat", c_mat), ("b_mat", b_mat), ("x", x),
+                    ("out", out)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride over its last "
+                             f"dimension, got strides {t.stride()}")
+    return (*c_mat.stride()[:2], *b_mat.stride()[:2], *da.stride(),
+            *x.stride()[:3], *out.stride()[:3])
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, device) -> None:
@@ -42,14 +72,22 @@ def _check(name: str, t: torch.Tensor, ndim: int, device) -> None:
                          f"{t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.ndim != ndim or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-D tensor, got "
-                         f"shape {tuple(t.shape)}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
 
 
 def ssd_intra(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
-    """(G, lc, N) C and B, (G, H, lc) da, (G, H, lc, P) x → (G, H, lc, P)."""
+    """(G, lc, N) C and B, (G, H, lc) da, (G, H, lc, P) x → (G, H, lc, P),
+    returned as the ``transpose(1, 2)`` view of a (G, lc, H, P) buffer."""
+    return ssd_intra_with(None, c_mat, b_mat, da, x)
+
+
+def ssd_intra_with(lib, c_mat: torch.Tensor, b_mat: torch.Tensor,
+                   da: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`ssd_intra` launched from ``lib``, a library bound by
+    :func:`bind` (None: the port's own)."""
     global launches
     device = c_mat.device
     _check("c_mat", c_mat, 3, device)
@@ -63,20 +101,24 @@ def ssd_intra(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
         raise ValueError(
             f"shape mismatch: c_mat {tuple(c_mat.shape)}, b_mat "
             f"{tuple(b_mat.shape)}, da {tuple(da.shape)}, x {tuple(x.shape)}")
-    out = torch.empty((g, h, lc, p), dtype=torch.float32, device=device)
+    out = torch.empty((g, lc, h, p), dtype=torch.float32,
+                      device=device).transpose(1, 2)
+    strides = kernel_strides(c_mat, b_mat, da, x, out)
     if out.numel() == 0:
         return out
     if n == 0:
         return out.zero_()          # an empty score sum is 0
-    lib = _lib()
+    if lib is None:
+        lib = _lib()
     if lib.ssd_intra_smem_bytes(lc) > _SMEM_LIMIT:
         raise ValueError(f"chunk length {lc} exceeds the kernel's shared "
-                         "memory for the prefix sums")
+                         "memory for its score strip (at most 256)")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ssd_intra_launch(c_mat.data_ptr(), b_mat.data_ptr(),
-                                   da.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                   g, h, lc, n, p, stream)
+        err = lib.ssd_intra_launch(
+            c_mat.data_ptr(), b_mat.data_ptr(), da.data_ptr(), x.data_ptr(),
+            out.data_ptr(), (ctypes.c_longlong * 13)(*strides), g, h, lc, n,
+            p, stream)
     if err != 0:
         raise RuntimeError(f"ssd_intra launch failed: cudaError {err}")
     launches += 1

@@ -77,12 +77,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     xdt = xc * dtc[..., None]
 
     # Intra-chunk (quadratic in lc — the "attention duality" term), kernel 6.
+    # Views, no copies: C and B stay slices of the conv stream, da and x
+    # keep the heads innermost, and on the card y comes back in the
+    # (B, S, H, P) layout, so the transpose below is a view there too.
     g = bsz * nc
-    y_k = ops.ssd_intra(
-        cc.reshape(g, lc, n).contiguous(),
-        bc.reshape(g, lc, n).contiguous(),
-        da.reshape(g, lc, h).transpose(1, 2).contiguous(),
-        xdt.reshape(g, lc, h, p).transpose(1, 2).contiguous())  # (G,H,lc,P)
+    y_k = ops.ssd_intra(cc.reshape(g, lc, n), bc.reshape(g, lc, n),
+                        da.reshape(g, lc, h).transpose(1, 2),
+                        xdt.reshape(g, lc, h, p).transpose(1, 2))  # (G,H,lc,P)
     y_diag = y_k.transpose(1, 2).reshape(bsz, nc, lc, h, p)
 
     # Per-chunk input → state contribution.

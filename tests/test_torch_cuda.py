@@ -7,7 +7,8 @@ also runs where those are not installed; on a machine with a card:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: Hamming and segment extraction exact (integer arithmetic);
-ADC ``rtol=1e-5, atol=0`` — f32 sums of ≤ d non-negative terms added in
+ADC ``rtol=1e-5, atol=0`` (and +inf exactly on the direct kernel's dead
+slots) — f32 sums of ≤ d non-negative terms added in
 another order (the kernels add over ascending d, ``torch.sum`` in its own
 order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
 ``atol=1e-5 · max |y|`` — f32 sums of up to lc · N products and of
@@ -94,21 +95,37 @@ def test_adc_table_kernel_equals_plain(cuda, b, m1, n, d):
         ref.adc_lb_ref(tables[0], codes[0]), rtol=ADC_RTOL, atol=0)
 
 
+def _keep(rng, qn, p, s, pattern):
+    """Live counts per pair: random in [0, S] with dead pairs (keep = 0)
+    and whole ones (keep = S), or all of one kind."""
+    if pattern == "dead":
+        return np.zeros((qn, p), np.int32)
+    if pattern == "whole":
+        return np.full((qn, p), s, np.int32)
+    keep = rng.integers(0, s + 1, size=(qn, p)).astype(np.int32)
+    keep[0, :], keep[-1, -1] = 0, s
+    return keep
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("d", [128, 10])
-def test_adc_direct_kernel_equals_plain(cuda, dtype, d):
+# d = 160: f32 boundaries too large for shared memory (read through L2)
+@pytest.mark.parametrize("d", [128, 10, 160])
+def test_adc_direct_kernel_equals_plain(cuda, dtype, d, pattern):
     rng = np.random.default_rng(d)
     qt, bnd, codes, sel = _direct_inputs(rng, qn=5, p=3, n_max=400, s=150,
                                          d=d, m1=257, dtype=dtype)
-    qt, bnd, codes, sel = (torch.from_numpy(a).to(cuda)
-                           for a in (qt, bnd, codes, sel))
+    keep = _keep(rng, 5, 3, 150, pattern)
+    qt, bnd, codes, sel, keep = (torch.from_numpy(a).to(cuda)
+                                 for a in (qt, bnd, codes, sel, keep))
     qcell = dataplane.query_cells(qt, bnd)
     before = adc_lookup.direct_launches
-    got = ops.adc_direct(qt, qcell, bnd, codes, sel)
+    got = ops.adc_direct(qt, qcell, bnd, codes, sel, keep)
     assert adc_lookup.direct_launches == before + 1
-    torch.testing.assert_close(
-        got, ref.adc_direct_ref(qt, qcell, bnd, codes, sel),
-        rtol=ADC_RTOL, atol=0)
+    want = ref.adc_direct_ref(qt, qcell, bnd, codes, sel, keep)
+    dead = torch.arange(150, device=cuda)[None, None, :] >= keep[:, :, None]
+    assert torch.equal(torch.isposinf(got), dead)
+    torch.testing.assert_close(got, want, rtol=ADC_RTOL, atol=0)
 
 
 def test_wrappers_reject_malformed_input(cuda):
@@ -122,6 +139,10 @@ def test_wrappers_reject_malformed_input(cuda):
         adc_lookup.adc_batch(torch.zeros((2, 3, 4), device=cuda),
                              torch.zeros((1, 5, 4), dtype=torch.int32,
                                          device=cuda))
+    c = torch.zeros((1, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd.ssd_intra(c[..., ::2], c[..., ::2], torch.zeros((1, 2, 8), device=cuda),
+                      torch.zeros((1, 2, 8, 4), device=cuda))
 
 
 @pytest.mark.parametrize("max_bits", [8, 5])
@@ -202,6 +223,7 @@ def _far_tiles(c_mat, b_mat, da, x, tile=64):
     (2, 3, 8, 4, 4, 1.0),
     (2, 5, 256, 128, 64, 1.0),             # mamba2-370m's chunk; 5 heads
     (1, 3, 200, 24, 80, 1.0),              # ragged row and column tiles
+    (2, 9, 70, 6, 10, 1.0),                # N, P not multiples of 4
     # The LM serve prefill's shape with slow decay (small dt, as trained
     # models run): every s-tile behind an l-tile carries weight.
     (64, 32, 256, 128, 64, 1e-3),
@@ -218,6 +240,35 @@ def test_ssd_intra_kernel_equals_plain(cuda, g, h, lc, n, p, da_scale):
     torch.testing.assert_close(got, want, rtol=SSD_RTOL, atol=atol)
     if da_scale < 1:
         assert float(_far_tiles(*args).abs().max()) > 1e3 * atol
+
+
+@pytest.mark.parametrize("g,h,lc,n,p", [(4, 32, 256, 128, 64),
+                                         (3, 5, 200, 24, 64)])
+@pytest.mark.parametrize("da_scale", [1.0, 1e-3])
+def test_ssd_intra_kernel_on_strided_views_equals_plain(cuda, g, h, lc, n, p,
+                                                        da_scale):
+    """The model's layout: C and B slices of one conv stream, da and x with
+    the heads innermost; the output's storage is (G, lc, H, P)."""
+    rng = np.random.default_rng(lc + h)
+    d_inner = h * p
+    conv = torch.from_numpy(rng.normal(size=(g, lc, d_inner + 2 * n))
+                            .astype(np.float32)).to(cuda)
+    da = torch.from_numpy((-da_scale * rng.exponential(size=(g, lc, h)))
+                          .astype(np.float32)).to(cuda).transpose(1, 2)
+    x = torch.from_numpy(rng.normal(size=(g, lc, h, p)).astype(np.float32)
+                         ).to(cuda).transpose(1, 2)
+    args = (conv[..., d_inner + n:], conv[..., d_inner:d_inner + n], da, x)
+    before = ssd.launches
+    got = ops.ssd_intra(*args)
+    assert ssd.launches == before + 1
+    assert got.transpose(1, 2).is_contiguous()
+    want = ref.ssd_intra_ref(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=SSD_RTOL,
+                               atol=SSD_ATOL_SCALE * float(want.abs().max()))
+    contiguous = [t.contiguous() for t in args]
+    torch.testing.assert_close(ops.ssd_intra(*contiguous), got, rtol=0,
+                               atol=0)
 
 
 def test_ssd_chunked_on_card_equals_cpu(cuda):

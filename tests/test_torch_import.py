@@ -2,8 +2,9 @@
 
 * ``repro_torch`` and every submodule import in a subprocess where ``jax``
   and ``repro`` cannot be imported;
-* no module of the port, nor ``chip_smoke.py``, names ``jax`` or ``repro``
-  in an import statement;
+* no module of the port, nor ``chip_smoke.py`` or
+  ``tools/kernel_variants.py``, names ``jax`` or ``repro`` in an import
+  statement;
 * entry points default to the card: without CUDA the torch search
   backend, the LM ``Engine`` and ``python -m repro_torch.launch.serve``
   raise (naming ``device="cpu"``) instead of running on the CPU, and the
@@ -39,6 +40,7 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "kernel_variants.py")
 
 
 def _imported_roots(path):
@@ -139,7 +141,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             adc_lookup.adc_direct(
                 torch.zeros((1, 1, 4)), torch.zeros((1, 1, 4), dtype=torch.int32),
                 torch.zeros((1, 3, 4)), torch.zeros((1, 2, 4), dtype=torch.int32),
-                torch.zeros((1, 1, 2), dtype=torch.int64))
+                torch.zeros((1, 1, 2), dtype=torch.int64),
+                torch.ones((1, 1), dtype=torch.int32))
     assert ops.launch_counts() == before
 
 
@@ -154,7 +157,8 @@ def _op_args(name):
         "adc_direct": (torch.zeros((1, 1, 4)),
                        torch.zeros((1, 1, 4), dtype=torch.int32),
                        torch.zeros((1, 3, 4)), codes,
-                       torch.zeros((1, 1, 2), dtype=torch.int64)),
+                       torch.zeros((1, 1, 2), dtype=torch.int64),
+                       torch.ones((1, 1), dtype=torch.int32)),
         "extract_codes": (torch.zeros((3, 2), dtype=torch.uint8),
                           segments.build_layout([4, 4, 8])),
         "ssd_intra": (torch.ones((1, 8, 4)), torch.ones((1, 8, 4)),
@@ -162,30 +166,29 @@ def _op_args(name):
     }[name]
 
 
-@pytest.mark.parametrize("name", ["hamming_distances", "hamming_stacked",
-                                  "adc_distances", "adc_batch", "adc_direct"])
-def test_ops_use_kernel_override_reaches_the_wrapper(name):
-    op, args = getattr(ops, name), _op_args(name)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        op(*args, use_kernel=True)
-    plain = op(*args)                                 # CPU → plain version
-    assert torch.equal(plain, op(*args, use_kernel=False))
-    # Tables of ones over d=4 give sqrt(4); zero words and codes in the
-    # query's own cell give 0.
-    expected = 2.0 if name in ("adc_distances", "adc_batch") else 0
-    assert torch.all(plain == expected)
+# What each op gives on _op_args: zero words and codes in the query's own
+# cell give 0, tables of ones over d=4 give sqrt(4), the direct Stage 4's
+# second slot lies past keep = 1 (+inf), and zero scores give 0.
+_EXPECTED = {"adc_distances": 2.0, "adc_batch": 2.0,
+             "adc_direct": torch.tensor([[[0.0, float("inf")]]])}
 
 
-@pytest.mark.parametrize("name,plain", [("extract_codes", "extract_ref"),
-                                        ("ssd_intra", "ssd_intra_ref")])
+@pytest.mark.parametrize("name,plain", [
+    ("hamming_distances", "hamming_ref"),
+    ("hamming_stacked", "hamming_stacked_ref"),
+    ("adc_distances", "adc_lb_ref"),
+    ("adc_batch", "adc_lb_batch_ref"),
+    ("adc_direct", "adc_direct_ref"),
+    ("extract_codes", "extract_ref"),
+    ("ssd_intra", "ssd_intra_ref")])
 def test_ops_route_cpu_tensors_to_the_plain_version(name, plain):
-    """``extract_codes`` and ``ssd_intra`` take no override: a CPU tensor
-    goes to the plain version and launches nothing."""
+    """The ops take no override: a CPU tensor goes to the plain version and
+    launches nothing."""
     args = _op_args(name)
     before = ops.launch_counts()
     got = getattr(ops, name)(*args)
     assert torch.equal(got, getattr(ref, plain)(*args))
-    assert torch.all(got == 0)
+    assert torch.all(got == _EXPECTED.get(name, 0))
     assert ops.launch_counts() == before
     with pytest.raises(TypeError):
         getattr(ops, name)(*args, use_kernel=True)

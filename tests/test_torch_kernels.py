@@ -135,11 +135,27 @@ def test_adc_single_table_view_equals_jax(sqrt):
 
 # ------------------------------------------------------------- ADC direct (2b)
 
+def _keep(rng, qn, p, s, pattern):
+    """Live counts per (query, partition): random in [0, S] with some pairs
+    dead (keep = 0) and some whole (keep = S), or all of one kind."""
+    if pattern == "dead":
+        return np.zeros((qn, p), np.int32)
+    if pattern == "whole":
+        return np.full((qn, p), s, np.int32)
+    keep = rng.integers(0, s + 1, size=(qn, p)).astype(np.int32)
+    keep[0, 0], keep[-1, -1] = 0, s
+    return keep
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_adc_direct_ref_equals_jax(dtype):
+def test_adc_direct_ref_equals_jax(dtype, pattern):
+    """Live slots equal the JAX package's ``adc_lb_direct``; dead slots
+    (s ≥ keep) are +inf."""
     rng = np.random.default_rng(21)
     qt, bnd, codes, sel = _direct_inputs(rng, qn=4, p=3, n_max=50, s=12,
                                          d=10, m1=17, dtype=dtype)
+    keep = _keep(rng, 4, 3, 12, pattern)
     qcell = np.asarray(jdp.query_cells(jnp.asarray(qt), jnp.asarray(bnd)))
     kept = codes[np.arange(3)[None, :, None], sel]          # (Q, P, S, d)
     want = np.asarray(jdp.adc_lb_direct(jnp.asarray(qt), jnp.asarray(qcell),
@@ -147,15 +163,17 @@ def test_adc_direct_ref_equals_jax(dtype):
     tq, tb = torch.from_numpy(qt), torch.from_numpy(bnd)
     tcell = dataplane.query_cells(tq, tb)
     np.testing.assert_array_equal(tcell.numpy(), qcell)
-    got = ref.adc_direct_ref(tq, tcell, tb, torch.from_numpy(codes),
-                             torch.from_numpy(sel))
+    args = (tq, tcell, tb, torch.from_numpy(codes), torch.from_numpy(sel),
+            torch.from_numpy(keep))
+    got = ref.adc_direct_ref(*args)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=ADC_RTOL_JAX, atol=0)
+    live = np.arange(12)[None, None, :] < keep[:, :, None]
+    np.testing.assert_allclose(got.numpy()[live], want[live],
+                               rtol=ADC_RTOL_JAX, atol=0)
+    assert np.all(np.isposinf(got.numpy()[~live]))
     twin = dataplane.adc_lb_direct(tq, tcell, tb, torch.from_numpy(kept))
-    np.testing.assert_array_equal(twin.numpy(), got.numpy())
-    via_ops = ops.adc_direct(tq, tcell, tb, torch.from_numpy(codes),
-                             torch.from_numpy(sel))
-    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+    np.testing.assert_array_equal(twin.numpy()[live], got.numpy()[live])
+    np.testing.assert_array_equal(ops.adc_direct(*args).numpy(), got.numpy())
 
 
 def test_cpu_dispatch_launches_no_kernel():

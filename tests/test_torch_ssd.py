@@ -6,7 +6,11 @@ package's, on the CPU.
   shapes of ``tests/test_ssd_kernel.py``;
 * ``models.ssm.ssd_chunked`` (intra-chunk term through ``ops.ssd_intra``)
   against the reference ``ssd_chunked``: several chunks, S not a multiple
-  of the chunk, a non-zero initial state.
+  of the chunk, a non-zero initial state;
+* the strided views ``ssd_chunked`` hands to ``ops.ssd_intra`` (B and C
+  slices of one conv stream, da and x with the heads innermost): the plain
+  version on them against the Pallas kernel on contiguous copies, and
+  ``kernels.ssd.kernel_strides`` on them.
 
 Tolerances: for the intra-chunk block ``rtol = 1e-5`` and ``atol = 4e-6 ·
 max |y|`` — float32 sums of up to lc · N products taken in another order,
@@ -26,7 +30,7 @@ from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, ref, ssd  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 
 SHAPES = [(2, 2, 16, 8, 8), (1, 4, 32, 16, 8), (3, 1, 64, 128, 64),
@@ -95,3 +99,73 @@ def test_ssd_chunked_matches_jax(s, lc, with_state):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_st.numpy(), np.asarray(want_st),
                                rtol=1e-4, atol=1e-4)
+
+
+def _chunked_intra_args(monkeypatch, s, lc):
+    """The arguments ``ssd_chunked`` hands to ``ops.ssd_intra`` when its B
+    and C are slices of one (B, S, d_inner + 2N) conv stream, as in
+    ``Mamba2Mixer._mix``; also returns that stream."""
+    bsz, h, p, n = 2, 3, 8, 16
+    d_inner = h * p
+    rng = np.random.default_rng(s + lc)
+    xbc = torch.from_numpy(
+        rng.normal(size=(bsz, s, d_inner + 2 * n)).astype(np.float32))
+    x = xbc[..., :d_inner].reshape(bsz, s, h, p)
+    dt = torch.from_numpy(
+        (np.abs(rng.normal(size=(bsz, s, h))) + 0.1).astype(np.float32))
+    a = torch.from_numpy((-np.abs(rng.normal(size=(h,))) - 0.1)
+                         .astype(np.float32))
+    seen = []
+    plain = ops.ssd_intra
+
+    def spy(*args):
+        seen.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(ops, "ssd_intra", spy)
+    ssm.ssd_chunked(x, dt, a, xbc[..., d_inner:d_inner + n],
+                    xbc[..., d_inner + n:], lc)
+    assert len(seen) == 1
+    return seen[0], xbc
+
+
+@pytest.mark.parametrize("s,lc", [(32, 16), (48, 16), (64, 64)])
+def test_ssd_intra_ref_on_chunked_views_matches_pallas(monkeypatch, s, lc):
+    args, xbc = _chunked_intra_args(monkeypatch, s, lc)
+    c_mat, b_mat, da, x = args
+    # Views, not copies: C and B read the conv stream itself.
+    assert c_mat.data_ptr() == xbc.data_ptr() + 4 * (xbc.shape[-1] - 16)
+    assert b_mat.data_ptr() == xbc.data_ptr() + 4 * (xbc.shape[-1] - 32)
+    for t in (c_mat, b_mat, da, x):
+        assert not t.is_contiguous()
+    want = np.asarray(jax_ops.ssd_intra(
+        *(jnp.asarray(np.ascontiguousarray(t.numpy())) for t in args),
+        interpret=True))
+    got = ref.ssd_intra_ref(*args)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=4e-6 * np.abs(want).max())
+
+
+def test_kernel_strides_of_chunked_views(monkeypatch):
+    (c_mat, b_mat, da, x), xbc = _chunked_intra_args(monkeypatch, 48, 16)
+    g, h, lc, p = x.shape
+    row = xbc.shape[-1]                     # conv channels per position
+    out = torch.empty((g, lc, h, p)).transpose(1, 2)   # the wrapper's output
+    assert ssd.kernel_strides(c_mat, b_mat, da, x, out) == (
+        lc * row, row,                      # C (g, l)
+        lc * row, row,                      # B (g, l)
+        lc * h, 1, h,                       # da (g, h, l): heads innermost
+        lc * h * p, p, h * p,               # x (g, h, l)
+        lc * h * p, p, h * p)               # out (g, h, l): (B, S, H, P)
+
+
+@pytest.mark.parametrize("which", ["c_mat", "b_mat", "x", "out"])
+def test_kernel_strides_refuse_non_unit_last_stride(monkeypatch, which):
+    args, _ = _chunked_intra_args(monkeypatch, 32, 16)
+    named = dict(zip(("c_mat", "b_mat", "da", "x"), args))
+    g, h, lc, p = named["x"].shape
+    named["out"] = torch.empty((g, lc, h, p)).transpose(1, 2)
+    t = named[which]
+    named[which] = torch.empty(t.shape[:-1] + (2 * t.shape[-1],))[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd.kernel_strides(**named)
