@@ -37,7 +37,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 * Path B (the table kernel): the same 1,000,000 rows with
   ``max_bits_per_dim=5`` (M+1 = 33); float64 ids must equal NumPy's. Its
   host index build runs in a spawned worker process beside Path A's, so
-  the two builds take the time of the longer one.
+  the two builds take the time of the longer one. Both paths' timed
+  batches report each stage's device time and the most device memory a
+  batch adds to what is resident at its start.
 * Segment extraction: every Path A partition's packed segments through
   ``kernels.ops.extract_codes`` on the card must equal its stored codes
   exactly.
@@ -45,13 +47,16 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   paths' shapes (Hamming and extraction exact; ADC rtol 1e-5, atol 0: f32
   sums of ≤ d non-negative terms in another order, and the direct kernel's
   +inf exactly on the slots past each pair's keep, with Path A's keep and
-  with whole and dead pairs put in; SSD intra-chunk rtol 1e-4, atol 1e-5 ·
+  with whole and dead pairs put in, and the same for the table kernel with
+  Path B's keep, in tables built in f64 and in f32, beside its dense (B, N,
+  d) form on the gathered codes; SSD intra-chunk rtol 1e-4, atol 1e-5 ·
   max |y|: f32 sums of up to lc · N products in another order; held on the
   strided views ``ssm.ssd_chunked`` passes and on contiguous copies, with
   fast decay and with slow decay, where every s-tile behind a row tile
   carries weight), with its device time (launches queued behind a spin of
   the card, CUDA events), the plain version's time and its bound on the
-  card; the direct kernel's bound counts what the live slots need.
+  card; the bounds of the two kernels that take ``keep`` count what the
+  live slots need.
 
 Launch counters are set to 0 just before each path (LM serve, each search
 path, the extraction) and read just after; every kernel must have launched
@@ -267,12 +272,19 @@ def time_batches(index, queries, preds, dtype, batches: int):
                 ev.record()
                 events[name] = ev
 
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             q64, cands, stats = index.select(queries, preds, K)
             t1 = time.perf_counter()
             index._search_torch(q64, cands, K, stats, device, mark=mark)
             t2 = time.perf_counter()          # ids are on the host: synced
+            peak = torch.cuda.max_memory_allocated()
             row = {
+                # Device memory at the batch's start (the stacked indexes
+                # resident on the card) and the most the batch added to it.
+                "resident_gb": resident / 1e9,
+                "batch_peak_gb": (peak - resident) / 1e9,
                 "wall_ms": (t2 - t0) * 1e3,
                 "host_stage12_ms": (t1 - t0) * 1e3,
                 "hamming_ms": events["start"].elapsed_time(events["hamming"]),
@@ -711,30 +723,119 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
                                 sel, qt32, keep))
     del stacked, sel, qt32, keep
 
-    # --- kernel 2 (table) at Path B's shapes ---------------------------
-    stacked, _, sel, qt, _ = stage_inputs(index_b, queries, preds,
-                                          torch.float64)
-    qn, p, s = sel.shape
-    m1, d = stacked.boundaries.shape[1], qt.shape[-1]
-    p_idx = torch.arange(p, device=sel.device)[None, :, None]
-    codes = stacked.codes[p_idx, sel].reshape(qn * p, s, d)
-    tables = dataplane.adc_table_batch(
-        qt, stacked.boundaries[None], stacked.cells[None]).reshape(
-        qn * p, m1, d).to(torch.float32).contiguous()
-    out_k = adc_lookup.adc_batch(tables, codes)
-    out_p = ref.adc_lb_batch_ref(tables, codes)
+    # --- kernel 2 (table) at Path B's shapes, and view 4 ----------------
+    entries.extend(check_table(index_b, queries, preds, launches))
+    emit({"phase": "views", "packed_hamming": "equal",
+          "adc_lb_distances": "within tolerance"})
+    entries.append(check_extract(index_a, packed_a, launches))
+    entries.append(check_ssd(ssd_shape, launches))
+    return entries
+
+
+def hold_keep(name, label, out_k, out_p, keep, cases) -> float:
+    """Hold a kernel that takes ``keep`` against its plain version: +inf
+    exactly on the dead slots (s ≥ keep), the live ones within rtol 1e-5,
+    atol 0. Records the case under ``label``; returns its largest live
+    error."""
+    import torch
+
+    s = out_k.shape[-1]
+    dead = torch.arange(s, device=keep.device)[None, None, :] >= keep[:, :, None]
+    if not torch.equal(torch.isposinf(out_k), dead):
+        raise AssertionError(f"{name} ({label}): +inf does not lie exactly "
+                             "on the dead slots")
     torch.testing.assert_close(out_k, out_p, rtol=ADC_RTOL, atol=0)
-    err = float((out_k - out_p).abs().max())
-    sq_k = adc_lookup.adc_batch(tables, codes, sqrt=False)
-    sq_p = ref.adc_lb_batch_ref(tables, codes, sqrt=False)
-    torch.testing.assert_close(sq_k, sq_p, rtol=ADC_RTOL, atol=0)
-    err = max(err, float((sq_k - sq_p).abs().max()))
+    live = ~dead
+    e = float((out_k[live] - out_p[live]).abs().max()) if live.any() else 0.0
+    cases[label] = {"max_abs_err": e, "live_slots": int(live.sum()),
+                    "dead_pairs": int((keep <= 0).sum()),
+                    "whole_pairs": int((keep >= s).sum())}
+    return e
+
+
+def check_table(index_b, queries, preds, launches):
+    """Kernel 2 at Path B's shapes: the plane's call (each pair's live
+    survivors read through ``sel`` from the stacked codes in place) against
+    its plain version with Path B's keep and with whole and dead pairs put
+    in, for tables built in f64 and in f32: rtol 1e-5, atol 0, +inf exactly
+    on dead slots. Timed at Path B's keep; the bound counts what the live
+    slots need. Then the TPU kernel's dense (B, N, d) contract on the
+    gathered codes (``ms_dense``) and its B = 1 view (view 4), each against
+    its plain version. Returns the entries of view 4 and kernel 2."""
+    import torch
+
+    from repro_torch.core import dataplane
+    from repro_torch.kernels import adc_lookup, ref
+
+    cases, err = {}, 0.0
+
+    def hold(label, args, sqrt=True):
+        nonlocal err
+        err = max(err, hold_keep(
+            "adc_table", label, adc_lookup.adc_table(*args, sqrt=sqrt),
+            ref.adc_table_ref(*args, sqrt=sqrt), args[-1], cases))
+
+    def table_args(dtype):
+        stacked, _, sel, qt, keep = stage_inputs(index_b, queries, preds,
+                                                 dtype)
+        qn, p = sel.shape[:2]
+        m1, d = stacked.boundaries.shape[1], qt.shape[-1]
+        tables = dataplane.adc_table_batch(
+            qt, stacked.boundaries[None], stacked.cells[None]).reshape(
+            qn, p, m1, d).to(torch.float32).contiguous()
+        return tables, stacked.codes, sel, keep
+
+    args32 = table_args(torch.float32)
+    hold("f32", args32)
+    hold("f32_edges", (*args32[:3], _edge_keep(args32[3], args32[2].shape[-1])))
+    del args32
+    args = table_args(torch.float64)        # the parity config's tables
+    tables, codes, sel, keep = args
+    qn, p, s = sel.shape
+    m1, d = tables.shape[2:]
+    n = codes.shape[1]
+    hold("f64", args)
+    hold("f64_edges", (tables, codes, sel, _edge_keep(keep, s)))
+    hold("f64_squared", args, sqrt=False)
+    ms = device_ms(lambda: adc_lookup.adc_table(*args), 20)
+    call_ms = cuda_ms(lambda: adc_lookup.adc_table(*args), 20)
+    plain_ms = cuda_ms(lambda: ref.adc_table_ref(*args), 3)
+
+    # What the live slots need: each live survivor's code row (unique) and
+    # sel entry, the live pairs' tables, keep, and the whole (Q, P, S)
+    # output written once.
+    slot = torch.arange(s, device=sel.device)[None, None, :]
+    live = slot < keep[:, :, None]
+    live_slots = int(live.sum())
+    p_idx = torch.arange(p, device=sel.device)[None, :, None]
+    live_rows = int(torch.unique((p_idx * n + sel)[live]).numel())
+    live_pairs = int((keep > 0).sum())
+    nbytes = (4 * live_rows * d + 8 * live_slots + 4 * live_pairs * m1 * d
+              + 4 * qn * p + 4 * qn * p * s)
+
+    # The dense (B, N, d) contract on the gathered codes: every slot live.
+    b = qn * p
+    t_b = tables.reshape(b, m1, d)
+    c_b = codes[p_idx, sel].reshape(b, s, d)
+    for sqrt in (True, False):
+        out_k = adc_lookup.adc_batch(t_b, c_b, sqrt=sqrt)
+        out_p = ref.adc_lb_batch_ref(t_b, c_b, sqrt=sqrt)
+        torch.testing.assert_close(out_k, out_p, rtol=ADC_RTOL, atol=0)
+        cases[f"dense_sqrt_{sqrt}"] = {
+            "max_abs_err": float((out_k - out_p).abs().max())}
+        err = max(err, cases[f"dense_sqrt_{sqrt}"]["max_abs_err"])
+        del out_k, out_p
+    ms_dense = device_ms(lambda: adc_lookup.adc_batch(t_b, c_b), 10)
+    call_ms_dense = cuda_ms(lambda: adc_lookup.adc_batch(t_b, c_b), 10)
+    plain_ms_dense = cuda_ms(lambda: ref.adc_lb_batch_ref(t_b, c_b), 3)
+    dense_bound_ms, _ = bound(4 * (b * m1 * d + b * s * d + b * s), b * s * d)
+
     # view 4: adc_lb_distances = kernel 2 at B = 1
-    t1, c1 = tables[0].contiguous(), codes[0].contiguous()
+    t1, c1 = t_b[0].contiguous(), c_b[0].contiguous()
     v4 = adc_lookup.adc_lb_distances(t1, c1)
     v4_p = ref.adc_lb_ref(t1, c1)
     torch.testing.assert_close(v4, v4_p, rtol=ADC_RTOL, atol=0)
-    entries.append(kernel_entry(
+    view4 = kernel_entry(
         "adc_lb_distances", "src/repro_torch/kernels/csrc/adc_lookup.cu",
         "src/repro/kernels/adc_lookup.py:59", 0,
         float((v4 - v4_p).abs().max()),
@@ -743,23 +844,24 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
         4 * (m1 * d + s * d + s), s * d, shape={"M+1": m1, "N": s, "d": d},
         tolerance=f"rtol={ADC_RTOL}, atol=0",
         path="none: kernel 2 at B = 1",
-        call_ms=cuda_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20)))
-    b = qn * p
-    entries.append(kernel_entry(
+        call_ms=cuda_ms(lambda: adc_lookup.adc_lb_distances(t1, c1), 20))
+    del c_b
+    table = kernel_entry(
         "adc_batch", "src/repro_torch/kernels/csrc/adc_lookup.cu",
         "src/repro/kernels/adc_lookup.py:127", launches["adc_batch"], err,
-        device_ms(lambda: adc_lookup.adc_batch(tables, codes), 10),
-        cuda_ms(lambda: ref.adc_lb_batch_ref(tables, codes), 3),
-        4 * (b * m1 * d + b * s * d + b * s), b * s * d,
-        shape={"B": b, "M+1": m1, "N": s, "d": d},
-        tolerance=f"rtol={ADC_RTOL}, atol=0",
-        call_ms=cuda_ms(lambda: adc_lookup.adc_batch(tables, codes), 10)))
-    emit({"phase": "views", "packed_hamming": "equal",
-          "adc_lb_distances": "within tolerance"})
-    del tables, codes, out_k, out_p, sq_k, sq_p, stacked, sel, qt
-    entries.append(check_extract(index_a, packed_a, launches))
-    entries.append(check_ssd(ssd_shape, launches))
-    return entries
+        ms, plain_ms, nbytes, live_slots * d,
+        shape={"Q": qn, "P": p, "S": s, "d": d, "M+1": m1, "n_max": n},
+        redesigned_in=14,
+        live_slots=live_slots, live_rows=live_rows, live_pairs=live_pairs,
+        slots=qn * p * s,
+        bound_counts="live slots: their code rows (unique), sel entries, "
+        "the live pairs' tables, keep, and the whole (Q, P, S) output",
+        timed="the plane's call: tables built in f64, Path B's sel and keep",
+        call_ms=call_ms, ms_dense=ms_dense, call_ms_dense=call_ms_dense,
+        plain_ms_dense=plain_ms_dense, dense_bound_ms=dense_bound_ms,
+        dense_shape={"B": b, "N": s, "d": d, "M+1": m1}, cases=cases,
+        tolerance=f"rtol={ADC_RTOL}, atol=0; +inf exactly on dead slots")
+    return [view4, table]
 
 
 def _edge_keep(keep, s):
@@ -791,22 +893,9 @@ def check_direct(index_a, queries, preds, launches, stacked, sel, qt32, keep):
 
     def hold(label, args):
         nonlocal err
-        out_k = adc_lookup.adc_direct(*args)
-        out_p = ref.adc_direct_ref(*args)
-        kp = args[-1]
-        dead = (torch.arange(s, device=kp.device)[None, None, :]
-                >= kp[:, :, None])
-        if not torch.equal(torch.isposinf(out_k), dead):
-            raise AssertionError(f"adc_direct ({label}): +inf does not lie "
-                                 "exactly on the dead slots")
-        torch.testing.assert_close(out_k, out_p, rtol=ADC_RTOL, atol=0)
-        live = ~dead
-        e = float((out_k[live] - out_p[live]).abs().max()) if live.any() \
-            else 0.0
-        cases[label] = {"max_abs_err": e, "live_slots": int(live.sum()),
-                        "dead_pairs": int((kp <= 0).sum()),
-                        "whole_pairs": int((kp >= s).sum())}
-        err = max(err, e)
+        err = max(err, hold_keep(
+            "adc_direct", label, adc_lookup.adc_direct(*args),
+            ref.adc_direct_ref(*args), args[-1], cases))
 
     qcell32 = dataplane.query_cells(qt32, stacked.boundaries)
     args32 = (qt32, qcell32, stacked.boundaries, stacked.codes, sel, keep)
@@ -859,9 +948,7 @@ def check_direct(index_a, queries, preds, launches, stacked, sel, qt32, keep):
         direct_ms, plain_ms, nbytes, ops_live,
         shape={"Q": qn, "P": p, "S": s, "d": d, "M+1": m1, "n_max": n,
                "dtype": "float32"},
-        redesigned_in=13, pr12={"ms": 2.454, "ms_f64": 2.855,
-                                "bound_ms_every_slot": 0.054,
-                                "from": "PERF.md, chip run of PR 12"},
+        redesigned_in=13,
         live_slots=live_slots, live_rows=live_rows, live_pairs=live_pairs,
         live_partitions=live_parts, slots=qn * p * s,
         bound_counts="live slots: their code rows (unique), sel entries, "
@@ -913,7 +1000,9 @@ def check_extract(index_a, packed_a, launches):
         tolerance="exact", timed="one sweep over all partitions "
         "(one launch each)", call_ms=cuda_ms(sweep, 10),
         call_ms_without_plan_cache=cuda_ms(sweep_uncached, 10),
-        ops_rate="integer ops counted at the f32 rate")
+        ops_rate="integer ops counted at the f32 rate",
+        max_pieces_per_dim=max(len(plan) for plan in parts[0].layout.plans),
+        redesigned_in=14)
 
 
 def _far_tiles(c_mat, b_mat, da, x, tile=64):
@@ -992,8 +1081,7 @@ def check_ssd(ssd_shape, launches):
         timed="fast decay, on the strided views ssm.ssd_chunked passes",
         ms_contiguous=device_ms(lambda: ssd.ssd_intra(*dense), 20),
         call_ms=cuda_ms(lambda: ssd.ssd_intra(*views), 20),
-        redesigned_in=13, pr12={"ms": 1.648, "on": "contiguous inputs",
-                                "from": "PERF.md, chip run of PR 12"},
+        redesigned_in=13,
         products="mma.sync m16n8k8 TF32 with 3xTF32 compensation",
         ops_counted="causal pairs: the products (scores 2N once per g, 2P "
         "per head for the output) at the 3xTF32 tensor-core rate, a third "
@@ -1034,7 +1122,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     per_lib = build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name, log in build.build_logs().items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": per_lib, "ptxas": ptxas})

@@ -10,9 +10,10 @@ queries *and* partitions. ``SquashIndex.search(backend="torch")``
 Layout: all partitions are stacked to a fixed row budget ``n_max`` with
 validity masks (:func:`stack_index`), so every stage is a dense fixed-shape
 tensor op — ``(Q, P, G)`` packed query words × ``(P, n_max, G)`` stacked
-codes for the Hamming kernel, ``(Q·P, M+1, d)`` tables × ``(Q·P, keep, d)``
-survivor codes for the ADC table kernel, or the stacked codes read through
-the survivors' rows for the direct kernel. The kernels dispatch through
+codes for the Hamming kernel, then for either ADC kernel the stacked codes
+read in place through the survivors' rows ``sel`` (Q, P, keep_s), with
+``(Q, P, M+1, d)`` per-pair tables for the table kernel or the partitions'
+boundaries for the direct kernel. The kernels dispatch through
 ``repro_torch.kernels.ops``: hand-written CUDA kernels for tensors on the
 card, plain PyTorch versions for tensors on the CPU. There is no jit: the
 plane runs eagerly, and the kernels' launch counters (``ops.launch_counts``)
@@ -384,16 +385,14 @@ def batched_stage345(
     d = queries.shape[-1]
     m1 = stacked.boundaries.shape[1]
     if m1 <= ADC_TABLE_MAX_M1:
-        # Dense per-pair tables (query dtype, cast f32) → table kernel.
-        kept_codes = stacked.codes[p_idx, sel]                  # (Q,P,keep_s,d)
+        # Dense per-pair tables (query dtype, cast f32) → table kernel, which
+        # reads the live survivors' codes through sel; dead slots come back
+        # +inf.
         tables = adc_table_batch(qt, stacked.boundaries[None],
                                  stacked.cells[None])
-        lb = ops.adc_batch(
-            tables.reshape(qn * p, m1, d).to(torch.float32).contiguous(),
-            kept_codes.reshape(qn * p, keep_s, d),
-        ).reshape(qn, p, keep_s)
-        slot = torch.arange(keep_s, device=dev)
-        lb = torch.where(slot[None, None, :] < keep[:, :, None], lb, inf)
+        lb = ops.adc_table(
+            tables.reshape(qn, p, m1, d).to(torch.float32).contiguous(),
+            stacked.codes, sel, keep)
     else:
         # Tall tables (hot dims of up to 2^max_bits cells): direct gathers of
         # the live survivors' codes, read through sel; dead slots come back

@@ -1,13 +1,15 @@
 """Wrappers of the two CUDA ADC kernels (``csrc/adc_lookup.cu``).
 
-* :func:`adc_batch` — kernel 2, replaces the TPU kernel
+* :func:`adc_table` — kernel 2, replaces the TPU kernel
   ``repro/kernels/adc_lookup.py::adc_lb_distances_batch`` (Stage 4 when
-  M+1 ≤ 129); :func:`adc_lb_distances` is its single-table view (the TPU's
-  ``adc_lb_distances``), the same kernel at B = 1.
+  M+1 ≤ 129) with the plane's survivor gather and dead-slot mask around it:
+  each pair's live survivors are read through ``sel`` from the stacked codes
+  in place, and slots at or past a pair's ``keep`` are +inf. :func:`adc_batch`
+  is the TPU kernel's own (B, N, d) contract and :func:`adc_lb_distances` its
+  single-table view: the same kernel at Q = 1, P = B with every slot live.
 * :func:`adc_direct` — kernel 2b, the port of
   ``repro/core/dataplane.py::adc_lb_direct`` (Stage 4 for tall tables),
-  reading each live survivor's codes through ``sel``; slots at or past a
-  pair's ``keep`` are +inf and cost no work.
+  reading each live survivor's codes through ``sel`` likewise.
 
 The wrappers take CUDA tensors only — ``kernels.ops`` routes CPU tensors to
 the plain versions in ``kernels.ref``. ``batch_launches`` and
@@ -18,20 +20,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["adc_batch", "adc_lb_distances", "adc_direct", "adc_direct_with",
-           "bind", "batch_launches", "direct_launches", "TABLE_SMEM_BYTES"]
+__all__ = ["adc_table", "adc_table_with", "adc_batch", "adc_lb_distances",
+           "adc_direct", "adc_direct_with", "bind", "batch_launches",
+           "direct_launches"]
 
 batch_launches = 0
 direct_launches = 0
-
-# Shared memory one adc_batch block stages its table tile in: two blocks fit
-# an H100 SM (227 KB), and (M+1) = 129 x d = 128 f32 (66 KB) fits whole.
-TABLE_SMEM_BYTES = 100 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,16 +39,16 @@ _L = ctypes.c_longlong
 
 
 def bind(lib: ctypes.CDLL):
-    """The (adc_batch, adc_direct) launch functions of a library built from
+    """The (adc_table, adc_direct) launch functions of a library built from
     ``csrc/adc_lookup.cu`` (or from an edited copy of it, as
     ``tools/kernel_variants.py`` builds), with their C interface declared."""
-    batch = lib.adc_batch_launch
-    batch.argtypes = [_P, _P, _P, _L, _I, _L, _I, _I, _I, _P]
-    batch.restype = _I
+    table = lib.adc_table_launch
+    table.argtypes = [_P] * 6 + [_I, _I, _I, _L, _I, _L, _I, _P]
+    table.restype = _I
     direct = lib.adc_direct_launch
     direct.argtypes = [_P] * 8 + [_I, _I, _I, _L, _I, _L, _I, _P]
     direct.restype = _I
-    return batch, direct
+    return table, direct
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,41 +67,76 @@ def _check(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
                          f"shape {tuple(t.shape)}")
 
 
-def _dim_tile(m1: int, d: int) -> int:
-    """Widest dim tile whose (M+1, DT) f32 table slice fits the budget."""
-    dt = min(d, TABLE_SMEM_BYTES // (4 * m1))
-    if dt >= 4:
-        dt -= dt % 4
-    if dt < 1:
-        raise ValueError(f"M+1={m1} table rows exceed the kernel's shared "
-                         "memory budget")
-    return dt
+def adc_table(tables: torch.Tensor, codes: torch.Tensor, sel: torch.Tensor,
+              keep: torch.Tensor, sqrt: bool = True) -> torch.Tensor:
+    """LB sums of each pair's live survivors, read through ``sel``.
+
+    tables (Q, P, M+1, d) f32; codes (P, n_max, d) int32; sel (Q, P, S)
+    int64 row indices in [0, n_max); keep (Q, P) int32 live counts →
+    (Q, P, S) f32 Σ_j T[q, p, code[sel[q, p, s], j], j] (square-rooted
+    when ``sqrt``), +inf at slots s ≥ keep[q, p].
+    """
+    return adc_table_with(None, tables, codes, sel, keep, sqrt=sqrt)
+
+
+def adc_table_with(launch, tables: torch.Tensor, codes: torch.Tensor,
+                   sel: Optional[torch.Tensor], keep: Optional[torch.Tensor],
+                   sqrt: bool = True) -> torch.Tensor:
+    """:func:`adc_table` through ``launch``, the first function :func:`bind`
+    returns (None: the port's own). ``sel`` None reads row s for slot s and
+    ``keep`` None makes every slot live (the (B, N, d) contract)."""
+    global batch_launches
+    device = tables.device
+    _check("tables", tables, 4, (torch.float32,), device)
+    _check("codes", codes, 3, (torch.int32,), device)
+    qn, p, m1, d = tables.shape
+    n_max = codes.shape[1]
+    if m1 < 1:
+        raise ValueError("tables need at least one code row (M+1 >= 1)")
+    if sel is not None:
+        _check("sel", sel, 3, (torch.int64,), device)
+    if keep is not None:
+        _check("keep", keep, 2, (torch.int32,), device)
+    s = n_max if sel is None else sel.shape[2]
+    if (codes.shape[0] != p or codes.shape[2] != d
+            or (sel is not None and sel.shape[:2] != (qn, p))
+            or (keep is not None and keep.shape != (qn, p))):
+        raise ValueError(
+            f"shape mismatch: tables {tuple(tables.shape)}, codes "
+            f"{tuple(codes.shape)}, sel "
+            f"{None if sel is None else tuple(sel.shape)}, keep "
+            f"{None if keep is None else tuple(keep.shape)}")
+    out = torch.empty((qn, p, s), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    off = torch.empty(p * qn + 1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if launch is None:
+            launch = _launchers()[0]
+        err = launch(tables.data_ptr(), codes.data_ptr(),
+                     None if sel is None else sel.data_ptr(),
+                     None if keep is None else keep.data_ptr(),
+                     off.data_ptr(), out.data_ptr(), qn, p, m1, n_max, d, s,
+                     int(sqrt), stream)
+    if err != 0:
+        raise RuntimeError(f"adc_table launch failed: cudaError {err}")
+    batch_launches += 1
+    return out
 
 
 def adc_batch(tables: torch.Tensor, codes: torch.Tensor,
               sqrt: bool = True) -> torch.Tensor:
-    """(B, M+1, d) f32 tables + (B, N, d) int32 codes → (B, N) f32 LB."""
-    global batch_launches
+    """(B, M+1, d) f32 tables + (B, N, d) int32 codes → (B, N) f32 LB:
+    kernel 2 at Q = 1, P = B, every row of each batch live."""
     device = tables.device
     _check("tables", tables, 3, (torch.float32,), device)
     _check("codes", codes, 3, (torch.int32,), device)
-    b, m1, d = tables.shape
-    if codes.shape[0] != b or codes.shape[2] != d:
+    if codes.shape[0] != tables.shape[0] or codes.shape[2] != tables.shape[2]:
         raise ValueError(f"shape mismatch: tables {tuple(tables.shape)} vs "
                          f"codes {tuple(codes.shape)}")
-    n = codes.shape[1]
-    out = torch.empty((b, n), dtype=torch.float32, device=device)
-    if out.numel() == 0 or d == 0:
-        return out.zero_()      # an empty sum is 0, and so is its sqrt
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launchers()[0](tables.data_ptr(), codes.data_ptr(),
-                              out.data_ptr(), b, m1, n, d, _dim_tile(m1, d),
-                              int(sqrt), stream)
-    if err != 0:
-        raise RuntimeError(f"adc_batch launch failed: cudaError {err}")
-    batch_launches += 1
-    return out
+    return adc_table_with(None, tables[None], codes, None, None,
+                          sqrt=sqrt)[0]
 
 
 def adc_lb_distances(table: torch.Tensor, codes: torch.Tensor,

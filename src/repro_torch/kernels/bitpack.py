@@ -5,8 +5,10 @@ packed S-bit segments → (N, d) int32 per-dimension codes (paper §2.2.2).
 Segments of S = 8 and 16 bits come as ``torch.uint8`` / ``torch.uint16``,
 S = 32 as the int32 bit pattern of the uint32 words (the port's convention).
 The layout's plan is uploaded once per (bit widths, S, device) as a small
-table the kernel reads into shared memory. The wrapper takes CUDA tensors only —
-``kernels.ops`` routes CPU tensors to ``kernels.ref.extract_ref``.
+table; each thread of the kernel loads its dims' pieces into registers (or,
+past three pieces a dim, reads the table from shared memory). The wrapper
+takes CUDA tensors only — ``kernels.ops`` routes CPU tensors to
+``kernels.ref.extract_ref``.
 
 ``launches`` counts the kernel launches of this process (reset it to 0 to
 count a window).
@@ -24,29 +26,32 @@ import torch
 from repro_torch.core.segments import SegmentLayout, build_layout
 from repro_torch.kernels import build
 
-__all__ = ["extract_codes", "launches", "SEG_DTYPES"]
+__all__ = ["extract_codes", "extract_codes_with", "bind", "launches",
+           "SEG_DTYPES"]
 
 launches = 0
 
 # Segment width S → the tensor dtype carrying its words.
 SEG_DTYPES = {8: torch.uint8, 16: torch.uint16, 32: torch.int32}
 
-_SMEM_LIMIT = 227 * 1024       # dynamic shared memory one H100 block can use
-_TILE_WORDS = 2048             # widened segment words staged per block (8 KB)
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
+def bind(lib: ctypes.CDLL):
+    """The launch function of a library built from ``csrc/bitpack.cu`` (or
+    from an edited copy of it, as ``tools/kernel_variants.py`` builds), with
+    its C interface declared."""
+    fn = lib.extract_launch
+    fn.argtypes = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = build.library("bitpack")
-    lib.extract_launch.argtypes = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]
-    lib.extract_launch.restype = _I
-    lib.extract_smem_bytes.argtypes = [_I, _I, _I, _I]
-    lib.extract_smem_bytes.restype = _L
-    return lib
+def _launcher():
+    return bind(build.library("bitpack"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,6 +72,13 @@ def _plan(bits: Tuple[int, ...], seg_bits: int, device: torch.device):
 
 def extract_codes(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     """(N, G) packed segments on the card → (N, d) int32 codes."""
+    return extract_codes_with(None, segments, layout)
+
+
+def extract_codes_with(launch, segments: torch.Tensor,
+                       layout: SegmentLayout) -> torch.Tensor:
+    """:func:`extract_codes` through ``launch``, the function :func:`bind`
+    returns (None: the port's own)."""
     global launches
     device = segments.device
     if device.type != "cuda":
@@ -87,17 +99,17 @@ def extract_codes(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor
     if out.numel() == 0:
         return out
     pieces, starts = _plan(layout.bits, layout.seg_bits, device)
-    rows = max(1, min(32, _TILE_WORDS // max(g, 1)))
-    lib = _lib()
-    if lib.extract_smem_bytes(g, d, pieces.shape[0], rows) > _SMEM_LIMIT:
-        raise ValueError(f"layout of d={d}, G={g} exceeds the kernel's "
-                         "shared memory")
+    max_pieces = max((len(plan) for plan in layout.plans), default=0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.extract_launch(segments.data_ptr(), pieces.data_ptr(),
-                                 starts.data_ptr(), out.data_ptr(), n, g, d,
-                                 pieces.shape[0], rows, layout.seg_bits // 8,
-                                 stream)
+        if launch is None:
+            launch = _launcher()
+        err = launch(segments.data_ptr(), pieces.data_ptr(),
+                     starts.data_ptr(), out.data_ptr(), n, g, d,
+                     pieces.shape[0], max_pieces, layout.seg_bits // 8, stream)
+    if err == -2:
+        raise ValueError(f"layout of d={d}, G={g} exceeds the kernel's "
+                         "shared memory")
     if err != 0:
         raise RuntimeError(f"extract_codes launch failed: cudaError {err}")
     launches += 1

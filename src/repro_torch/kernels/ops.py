@@ -15,8 +15,8 @@ from repro_torch.core.segments import SegmentLayout
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ref, ssd
 
 __all__ = ["hamming_distances", "hamming_stacked", "adc_distances",
-           "adc_batch", "adc_direct", "extract_codes", "ssd_intra",
-           "launch_counts", "reset_launch_counts"]
+           "adc_batch", "adc_table", "adc_direct", "extract_codes",
+           "ssd_intra", "launch_counts", "reset_launch_counts"]
 
 
 def hamming_distances(q_packed, db_packed):
@@ -47,6 +47,15 @@ def adc_batch(tables, codes, *, sqrt: bool = True):
     return ref.adc_lb_batch_ref(tables, codes, sqrt=sqrt)
 
 
+def adc_table(tables, codes, sel, keep, *, sqrt: bool = True):
+    """Table Stage 4: (Q, P, M+1, d) f32 per-pair tables, survivors ``sel``
+    (Q, P, S) of stacked ``codes`` (P, n_max, d) → (Q, P, S) f32 LB
+    distances, +inf at slots s ≥ ``keep`` (Q, P)."""
+    if tables.is_cuda:
+        return adc_lookup.adc_table(tables, codes, sel, keep, sqrt=sqrt)
+    return ref.adc_table_ref(tables, codes, sel, keep, sqrt=sqrt)
+
+
 def adc_direct(qt, qcell, boundaries, codes, sel, keep):
     """Direct Stage 4: survivors ``sel`` (Q, P, S) of stacked ``codes``
     (P, n_max, d) → (Q, P, S) f32 squared LB sums, +inf at slots
@@ -75,7 +84,7 @@ def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
     return {
         "hamming_stacked": hamming.launches,
-        "adc_batch": adc_lookup.batch_launches,
+        "adc_batch": adc_lookup.batch_launches,   # kernel 2, either contract
         "adc_direct": adc_lookup.direct_launches,
         "extract_codes": bitpack.launches,
         "ssd_intra": ssd.launches,

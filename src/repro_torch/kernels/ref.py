@@ -1,7 +1,9 @@
 """Plain PyTorch versions of every kernel of the port (oracles + CPU path).
 
 Torch twins of the JAX package's ``repro.kernels.ref``, plus the plain
-version of the direct-gather Stage 4 kernel (the port of
+versions of the two Stage 4 kernels that read survivors through ``sel``: the
+table kernel (``adc_lb_batch_ref`` on the gathered codes, dead slots +inf)
+and the direct-gather kernel (the port of
 ``repro.core.dataplane.adc_lb_direct``). ``kernels.ops`` runs these for CPU
 tensors; the tests hold them against the JAX package and ``chip_smoke.py``
 holds the CUDA kernels against them on the card.
@@ -18,8 +20,8 @@ import torch
 from repro_torch.core.segments import SegmentLayout, extract_all
 
 __all__ = ["popcount32", "hamming_ref", "hamming_stacked_ref", "adc_lb_ref",
-           "adc_lb_batch_ref", "adc_lb_direct_ref", "adc_direct_ref",
-           "extract_ref", "ssd_intra_ref"]
+           "adc_lb_batch_ref", "adc_table_ref", "adc_lb_direct_ref",
+           "adc_direct_ref", "extract_ref", "ssd_intra_ref"]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -59,6 +61,36 @@ def adc_lb_batch_ref(tables: torch.Tensor, codes: torch.Tensor,
     return torch.sqrt(s) if sqrt else s
 
 
+def _survivors(codes: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """(P, n_max, d) stacked codes at (Q, P, S) rows ``sel`` → (Q, P, S, d)."""
+    p_idx = torch.arange(codes.shape[0], device=codes.device)[None, :, None]
+    return codes[p_idx, sel]
+
+
+def _dead_inf(lb: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """(Q, P, S) ``lb`` with +inf at slots s ≥ keep[q, p]."""
+    slot = torch.arange(lb.shape[-1], device=lb.device)
+    return torch.where(slot < keep[:, :, None], lb, float("inf"))
+
+
+def adc_table_ref(tables: torch.Tensor, codes: torch.Tensor,
+                  sel: torch.Tensor, keep: torch.Tensor,
+                  sqrt: bool = True) -> torch.Tensor:
+    """Plain version of the table Stage 4 kernel (kernel 2).
+
+    tables: (Q, P, M+1, d) f32 per-pair tables; codes: (P, n_max, d) int32
+    stacked codes; sel: (Q, P, S) rows of each pair's survivors; keep:
+    (Q, P) live counts → (Q, P, S) f32, +inf at slots s ≥ keep[q, p].
+    Gathers the survivors' codes, then :func:`adc_lb_batch_ref`.
+    """
+    qn, p, m1, d = tables.shape
+    s = sel.shape[-1]
+    lb = adc_lb_batch_ref(tables.reshape(qn * p, m1, d),
+                          _survivors(codes, sel).reshape(qn * p, s, d),
+                          sqrt=sqrt).reshape(qn, p, s)
+    return _dead_inf(lb, keep)
+
+
 def adc_lb_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
                       boundaries: torch.Tensor,
                       codes: torch.Tensor) -> torch.Tensor:
@@ -95,11 +127,8 @@ def adc_direct_ref(qt: torch.Tensor, qcell: torch.Tensor,
     (Q, P, S) f32 squared LB, +inf at slots s ≥ keep[q, p]. Gathers the
     survivors' codes, then :func:`adc_lb_direct_ref`.
     """
-    p = codes.shape[0]
-    p_idx = torch.arange(p, device=codes.device)[None, :, None]
-    lb = adc_lb_direct_ref(qt, qcell, boundaries, codes[p_idx, sel])
-    slot = torch.arange(sel.shape[-1], device=sel.device)
-    return torch.where(slot < keep[:, :, None], lb, float("inf"))
+    lb = adc_lb_direct_ref(qt, qcell, boundaries, _survivors(codes, sel))
+    return _dead_inf(lb, keep)
 
 
 def extract_ref(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:

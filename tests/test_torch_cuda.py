@@ -7,8 +7,8 @@ also runs where those are not installed; on a machine with a card:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: Hamming and segment extraction exact (integer arithmetic);
-ADC ``rtol=1e-5, atol=0`` (and +inf exactly on the direct kernel's dead
-slots) — f32 sums of ≤ d non-negative terms added in
+ADC ``rtol=1e-5, atol=0`` (and +inf exactly on the dead slots of the
+kernels that take ``keep``) — f32 sums of ≤ d non-negative terms added in
 another order (the kernels add over ascending d, ``torch.sum`` in its own
 order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
 ``atol=1e-5 · max |y|`` — f32 sums of up to lc · N products and of
@@ -76,7 +76,9 @@ def test_hamming_kernel_equals_plain(cuda, qn, p, n, g):
 
 
 @pytest.mark.parametrize("b,m1,n,d", [(3, 9, 37, 20), (4, 33, 700, 128),
-                                      (2, 129, 300, 128), (2, 257, 50, 128)])
+                                      (2, 129, 300, 128), (2, 257, 50, 128),
+                                      # a table past shared memory: via L2
+                                      (2, 257, 60, 256)])
 def test_adc_table_kernel_equals_plain(cuda, b, m1, n, d):
     rng = np.random.default_rng(m1 + n)
     tables = rng.exponential(size=(b, m1, d)).astype(np.float32)
@@ -105,6 +107,40 @@ def _keep(rng, qn, p, s, pattern):
     keep = rng.integers(0, s + 1, size=(qn, p)).astype(np.int32)
     keep[0, :], keep[-1, -1] = 0, s
     return keep
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
+@pytest.mark.parametrize("m1", [9, 33, 129])
+@pytest.mark.parametrize("d", [10, 128, 160])
+def test_adc_table_sel_kernel_equals_plain(cuda, m1, d, pattern):
+    """Kernel 2 reading survivors through sel from the stacked codes:
+    live slots within rtol 1e-5 of the plain version, +inf exactly on the
+    dead ones (d = 10: the scalar code path; codes past [0, M] clamp)."""
+    rng = np.random.default_rng(m1 + d)
+    qn, p, n_max, s = 5, 3, 400, 150
+    tables = rng.exponential(size=(qn, p, m1, d)).astype(np.float32)
+    codes = rng.integers(0, m1, size=(p, n_max, d)).astype(np.int32)
+    sel = np.stack([np.stack([rng.choice(n_max, size=s, replace=False)
+                              for _ in range(p)]) for _ in range(qn)])
+    keep = _keep(rng, qn, p, s, pattern)
+    tables, codes, sel, keep = (torch.from_numpy(a).to(cuda) for a in (
+        tables, codes, sel.astype(np.int64), keep))
+    before = adc_lookup.batch_launches
+    dead = torch.arange(s, device=cuda)[None, None, :] >= keep[:, :, None]
+    for sqrt in (True, False):
+        got = ops.adc_table(tables, codes, sel, keep, sqrt=sqrt)
+        assert torch.equal(torch.isposinf(got), dead)
+        torch.testing.assert_close(
+            got, ref.adc_table_ref(tables, codes, sel, keep, sqrt=sqrt),
+            rtol=ADC_RTOL, atol=0)
+    assert adc_lookup.batch_launches == before + 2
+    wide = codes.clone()
+    wide[0, :, 0] = m1 + 5                      # codes outside [0, M] read
+    wide[1, :, -1] = -3                         # the nearest table row
+    clamped = wide.clamp(0, m1 - 1)
+    torch.testing.assert_close(
+        ops.adc_table(tables, wide, sel, keep),
+        ref.adc_table_ref(tables, clamped, sel, keep), rtol=ADC_RTOL, atol=0)
 
 
 @pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
@@ -179,6 +215,12 @@ def test_search_on_card_equals_numpy(cuda, max_bits):
     (8, [3, 9, 1, 7, 12, 0, 5], 777),
     (16, [12, 16, 2, 9, 0, 11], 1000),
     (32, [16, 16, 31, 1, 7, 32], 513),     # words with the top bit set
+    (8, [4] * 128, 1),                     # one row
+    (8, [5, 3] * 64, 1000),                # rows not a multiple of the tile
+    (8, [2] + [12] * 127, 300),            # 3 pieces in a dim (registers)
+    (8, [1] + [32] * 40, 200),             # 5 pieces: the plan in shared memory
+    (8, [3, 9, 1, 7, 12, 0, 5, 4, 6, 9], 901),  # G = 7: rows not 16-B aligned
+    (16, [7] * 1100, 97),                  # d > 1024: plan in shared memory
 ])
 def test_extract_kernel_equals_plain(cuda, seg_bits, bits, n):
     rng = np.random.default_rng(n)

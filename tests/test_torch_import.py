@@ -119,8 +119,8 @@ def test_launch_serve_defaults_to_card_and_raises_without_cuda(monkeypatch):
         launch_serve.main(["--arch", "mamba2-370m", "--reduced"])
 
 
-@pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_direct",
-                                  "ssd_intra", "extract_codes"])
+@pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_table",
+                                  "adc_direct", "ssd_intra", "extract_codes"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: no quiet CPU fallback."""
     words = torch.zeros((1, 1, 4), dtype=torch.int32)
@@ -131,6 +131,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
         elif call == "adc_batch":
             adc_lookup.adc_batch(torch.zeros((1, 3, 4)),
                                  torch.zeros((1, 2, 4), dtype=torch.int32))
+        elif call == "adc_table":
+            adc_lookup.adc_table(torch.zeros((1, 1, 3, 4)),
+                                 torch.zeros((1, 2, 4), dtype=torch.int32),
+                                 torch.zeros((1, 1, 2), dtype=torch.int64),
+                                 torch.ones((1, 1), dtype=torch.int32))
         elif call == "ssd_intra":
             ssd.ssd_intra(torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)),
                           torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8, 4)))
@@ -154,6 +159,9 @@ def _op_args(name):
         "hamming_stacked": (words, words),
         "adc_distances": (torch.ones((3, 4)), codes[0]),
         "adc_batch": (torch.ones((1, 3, 4)), codes),
+        "adc_table": (torch.ones((1, 1, 3, 4)), codes,
+                      torch.zeros((1, 1, 2), dtype=torch.int64),
+                      torch.ones((1, 1), dtype=torch.int32)),
         "adc_direct": (torch.zeros((1, 1, 4)),
                        torch.zeros((1, 1, 4), dtype=torch.int32),
                        torch.zeros((1, 3, 4)), codes,
@@ -168,8 +176,10 @@ def _op_args(name):
 
 # What each op gives on _op_args: zero words and codes in the query's own
 # cell give 0, tables of ones over d=4 give sqrt(4), the direct Stage 4's
-# second slot lies past keep = 1 (+inf), and zero scores give 0.
+# second slot lies past keep = 1 (+inf), as the table Stage 4's does, and
+# zero scores give 0.
 _EXPECTED = {"adc_distances": 2.0, "adc_batch": 2.0,
+             "adc_table": torch.tensor([[[2.0, float("inf")]]]),
              "adc_direct": torch.tensor([[[0.0, float("inf")]]])}
 
 
@@ -178,6 +188,7 @@ _EXPECTED = {"adc_distances": 2.0, "adc_batch": 2.0,
     ("hamming_stacked", "hamming_stacked_ref"),
     ("adc_distances", "adc_lb_ref"),
     ("adc_batch", "adc_lb_batch_ref"),
+    ("adc_table", "adc_table_ref"),
     ("adc_direct", "adc_direct_ref"),
     ("extract_codes", "extract_ref"),
     ("ssd_intra", "ssd_intra_ref")])

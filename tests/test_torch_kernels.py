@@ -184,4 +184,8 @@ def test_cpu_dispatch_launches_no_kernel():
     tables = _tables(rng, 2, 5, 4)
     ops.adc_batch(torch.from_numpy(tables),
                   torch.zeros((2, 3, 4), dtype=torch.int32))
+    ops.adc_table(torch.from_numpy(tables).reshape(1, 2, 5, 4),
+                  torch.zeros((2, 7, 4), dtype=torch.int32),
+                  torch.zeros((1, 2, 3), dtype=torch.int64),
+                  torch.tensor([[1, 3]], dtype=torch.int32))
     assert ops.launch_counts() == before
