@@ -57,10 +57,31 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   the card, CUDA events), the plain version's time and its bound on the
   card; the bounds of the two kernels that take ``keep`` count what the
   live slots need.
+* Serverless (after the kernels phase, which must see the indexes
+  unmutated): ``repro_torch.serverless.ServerlessRuntime`` on Path A's
+  index, Coordinator → QA → QP over the Alg. 2 tree (F=4, l_max=2), Q=64,
+  k=10. The local transport with its QPs on the card: float64 ids and
+  ``SearchStats`` must equal ``index.search(backend="torch")`` (cold and
+  warm fleet); float32 recall@10 is reported. The process transport with
+  one spawned QP worker per partition on the card (each its own CUDA
+  context) and two CPU allocator workers: float64 ids and stats must
+  equal the local run's, and the warm batch must fetch nothing. Per
+  transport: batch wall ms, modeled makespan and dollars, invocations, QP
+  handler ms, worker start-up seconds and the card memory each QP worker
+  adds. Its invoke timeout is raised to 600 s for a cold card.
+* Live: Path B's index wrapped in a ``LiveIndex``; 10,000 rows from the
+  dataset generator at seed 1 inserted and 1 % of all ids deleted; the
+  card's float64 ids must equal the NumPy backend's with no tombstoned id
+  returned; a drop-only compaction must leave ids and stats unchanged
+  (the reference's contract), a requantizing one the stats (its ids held
+  against NumPy's); a local serverless runtime drained across the
+  mutations must equal the torch backend throughout. Insert, delete,
+  compaction and restack seconds are reported.
 
 Launch counters are set to 0 just before each path (LM serve, each search
-path, the extraction) and read just after; every kernel must have launched
-on the path that runs it. Every
+path, the extraction, the serverless local run, the live phase) and read
+just after; every kernel must have launched on the path that runs it.
+Every
 check raises on failure, so the script exits non-zero. The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit from
 ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -241,15 +262,21 @@ def straddle_diagnosis(index, queries, preds, ids_a, ids_b):
     emit({"phase": "straddle_diagnosis", "rows": rows})
 
 
-def search_torch(index, queries, preds, dtype):
+def with_dtype(dtype, fn):
+    """``fn()`` with ``dtype`` as torch's default float dtype."""
     import torch
 
     prev = torch.get_default_dtype()
     torch.set_default_dtype(dtype)
     try:
-        return index.search(queries, preds, k=K, backend="torch")
+        return fn()
     finally:
         torch.set_default_dtype(prev)
+
+
+def search_torch(index, queries, preds, dtype):
+    return with_dtype(dtype, lambda: index.search(queries, preds, k=K,
+                                                  backend="torch"))
 
 
 def time_batches(index, queries, preds, dtype, batches: int):
@@ -345,7 +372,8 @@ def emit_build(name, index, rows, config, build_s, **extra):
 
 def run_path(name, ds, rows, index, preds, *, check_f32: bool,
              timed_batches: int):
-    """Search on numpy and torch and compare; returns the launch counts."""
+    """Search on numpy and torch and compare; returns the launch counts and
+    the brute-force filtered ground truth (None without ``check_f32``)."""
     import numpy as np
     import torch
 
@@ -354,6 +382,7 @@ def run_path(name, ds, rows, index, preds, *, check_f32: bool,
 
     vectors, attrs = ds.vectors[:rows], ds.attributes[:rows]
     queries = ds.queries.astype(np.float64)
+    gt = None
     t0 = time.perf_counter()
     ids_np, d_np, st_np = index.search(queries, preds, k=K, backend="numpy")
     numpy_s = time.perf_counter() - t0
@@ -403,6 +432,291 @@ def run_path(name, ds, rows, index, preds, *, check_f32: bool,
             break
         emit({"phase": f"{name}_timing_{label}", "Q": int(queries.shape[0]),
               **time_batches(index, queries, preds, dtype, timed_batches)})
+    return counts, gt
+
+
+# ------------------------------------------------- serverless and live index
+
+SERVERLESS_TOPOLOGY = dict(branching=4, max_level=2)
+# Spawned QP workers import torch, open a CUDA context and copy their slab
+# to the card on their first request; the reference's 180 s hang guard is
+# raised here only, for a cold card.
+SERVERLESS_INVOKE_TIMEOUT_S = 600.0
+LIVE_INSERTS, LIVE_INSERT_SEED, LIVE_DELETE_SHARE = 10_000, 1, 0.01
+
+
+def gpu_memory_used_mb() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout
+    return float(out.splitlines()[0])
+
+
+def same_answer(label, got, want_ids, want_stats=None):
+    """Raise unless a result's ids (and stats) equal the wanted ones."""
+    import numpy as np
+
+    if not np.array_equal(got[0], want_ids):
+        raise AssertionError(f"{label}: ids differ in "
+                             f"{int((got[0] != want_ids).any(axis=1).sum())} "
+                             "queries")
+    if want_stats is not None and got[2] != want_stats:
+        raise AssertionError(f"{label}: SearchStats differ: {got[2]} vs "
+                             f"{want_stats}")
+
+
+def run_trace_summary(res, wall_s):
+    """What one serverless search cost: the host clock, the modeled §3.5
+    timeline and dollars, and the QP handlers' measured times (each ends
+    copying its answer to the host, so it covers the QP's device work)."""
+    import numpy as np
+
+    qp = [n for n in res.trace.nodes if n.kind == "qp"]
+    compute_ms = np.array([n.wall_compute_s for n in qp]) * 1e3
+    qa_ms = sum(n.wall_compute_s for n in res.trace.nodes
+                if n.kind == "qa") * 1e3
+    return {"batch_wall_ms": wall_s * 1e3,
+            "qa_compute_ms_sum": qa_ms,
+            "qp_compute_ms_sum": float(compute_ms.sum()),
+            "modeled_makespan_s": res.trace.makespan_s,
+            "measured_makespan_s": res.trace.measured_makespan_s,
+            "cost_usd": res.trace.cost["total"],
+            "invocations": {kind: res.trace.invocations(kind)
+                            for kind in ("co", "qa", "qp")},
+            "qp_compute_ms_mean": float(compute_ms.mean()),
+            "qp_compute_ms_max": float(compute_ms.max()),
+            "qp_fetch_s_max": float(max(n.fetch_s for n in qp)),
+            "qp_warm_share": float(np.mean([n.warm for n in qp])),
+            "s3_gets": res.trace.dre.s3_gets,
+            "payload_bytes": res.trace.payload_bytes}
+
+
+def serverless_phase(index, queries, preds, gt, rows):
+    """The serverless runtime (Coordinator → QA → QP, Alg. 2 tree F=4,
+    l_max=2) on Path A's index: the local transport on the card, whose f64
+    ids and stats must equal ``index.search(backend="torch")``, f32 recall;
+    then the process transport with one spawned QP worker per partition on
+    the card (its own CUDA context each), whose f64 ids must equal the
+    local run's. Returns the kernel launches of the local f64 run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pipeline import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.serverless import RuntimeConfig, ServerlessRuntime
+
+    f64, f32 = torch.float64, torch.float32
+    want = search_torch(index, queries, preds, f64)
+    out = {"phase": "serverless", "rows": int(rows),
+           "P": len(index.parts), "Q": int(queries.shape[0]), "k": K,
+           **SERVERLESS_TOPOLOGY}
+
+    def search(rt):
+        t0 = time.perf_counter()
+        res = rt.search(queries, preds, k=K)
+        return res, time.perf_counter() - t0
+
+    # --- local transport, QPs on the card ------------------------------
+    local = with_dtype(f64, lambda: ServerlessRuntime(
+        index, RuntimeConfig(**SERVERLESS_TOPOLOGY)))
+    ops.reset_launch_counts()
+    cold, cold_s = with_dtype(f64, lambda: search(local))
+    counts = ops.launch_counts()
+    warm, warm_s = with_dtype(f64, lambda: search(local))
+    # One more warm batch under torch.profiler: the card's kernel time in
+    # all QP invocations (the profiler slows the host, so its wall is
+    # reported apart).
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled, profiled_s = with_dtype(f64, lambda: search(local))
+    rows = _device_kernels(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    for label, res in (("local cold", cold), ("local warm", warm),
+                       ("local profiled", profiled)):
+        same_answer(f"serverless {label}", (res.ids, res.dists, res.stats),
+                    want[0], want[2])
+    out["local_f64"] = {"cold": run_trace_summary(cold, cold_s),
+                        "warm": run_trace_summary(warm, warm_s),
+                        "profiled_warm": {
+                            "host_wall_ms": profiled_s * 1e3,
+                            "device_kernel_ms": device_ms,
+                            "kernel_launches": sum(r[1] for r in rows),
+                            "device_ms_per_qp_invocation":
+                                device_ms / profiled.trace.invocations("qp"),
+                            "device_busy_share_of_warm_wall":
+                                device_ms / (warm_s * 1e3),
+                            "top_kernels": [
+                                {"name": k[:80], "ms": us / 1e3, "count": n}
+                                for us, n, k in rows[:6]]},
+                        "ids_equal_torch_backend": True,
+                        "stats_equal_torch_backend": True,
+                        "launches": counts}
+    local32 = with_dtype(f32, lambda: ServerlessRuntime(
+        index, RuntimeConfig(**SERVERLESS_TOPOLOGY)))
+    r32, s32 = with_dtype(f32, lambda: search(local32))
+    want32 = search_torch(index, queries, preds, f32)
+    out["local_f32"] = {**run_trace_summary(r32, s32),
+                        "recall_at_10": recall_at_k(r32.ids, gt),
+                        "recall_at_10_torch_backend": recall_at_k(want32[0], gt),
+                        "share_ids_equal_torch_backend":
+                            float(np.mean(r32.ids == want32[0]))}
+    del local, local32
+    for name in ("hamming_stacked", "adc_direct"):
+        if counts[name] <= 0:
+            raise AssertionError(f"serverless: {name} never launched")
+
+    # --- process transport, one QP worker per partition on the card ----
+    slab = index.stacked(f64, resolve_device(None)).part(0)
+    slab_mb = sum(getattr(slab, f.name).numel()
+                  * getattr(slab, f.name).element_size()
+                  for f in dataclasses.fields(slab)) / 2**20
+    mem0 = gpu_memory_used_mb()
+    proc = with_dtype(f64, lambda: ServerlessRuntime(index, RuntimeConfig(
+        transport="process", invoke_timeout_s=SERVERLESS_INVOKE_TIMEOUT_S,
+        **SERVERLESS_TOPOLOGY)))
+    try:
+        t0 = time.perf_counter()
+        proc.transport                       # bundles built, workers spawned
+        spawn_s = time.perf_counter() - t0
+        p_cold, p_cold_s = search(proc)
+        mem1 = gpu_memory_used_mb()
+        p_warm, p_warm_s = search(proc)
+        qa_workers = len(proc.transport.worker_pids("qa"))
+    finally:
+        proc.close()
+    for label, res in (("process cold", p_cold), ("process warm", p_warm)):
+        same_answer(f"serverless {label}", (res.ids, res.dists, res.stats),
+                    cold.ids, cold.stats)
+    if p_warm.trace.dre.s3_gets != 0:
+        raise AssertionError("serverless process: the warm batch refetched")
+    n_qp = len(index.parts)
+    out["process_f64"] = {
+        "cold": run_trace_summary(p_cold, p_cold_s),
+        "warm": run_trace_summary(p_warm, p_warm_s),
+        "ids_equal_local": True, "qp_workers": n_qp,
+        "qa_workers": qa_workers,
+        "spawn_s": spawn_s,
+        "worker_startup_s": spawn_s + float(max(
+            n.fetch_s for n in p_cold.trace.nodes if n.kind == "qp")),
+        "card_memory_added_mb": mem1 - mem0,
+        "card_memory_per_qp_worker_mb": (mem1 - mem0) / n_qp,
+        "qp_slab_mb": slab_mb,
+        "context_per_qp_worker_mb": (mem1 - mem0) / n_qp - slab_mb,
+        "invoke_timeout_s": SERVERLESS_INVOKE_TIMEOUT_S}
+    emit(out)
+    return counts
+
+
+def live_phase(index, queries, preds):
+    """Path B's index wrapped in a LiveIndex: 10,000 inserted rows from the
+    dataset generator at another seed, 1 % of all ids deleted; the card's
+    f64 ids equal NumPy's and no tombstoned id comes back; a drop-only
+    compaction is bitwise invisible (ids and stats); a requantizing one
+    keeps the stats, with ids equal on both backends; a local serverless
+    runtime drained across the mutations equals the torch backend
+    throughout. Returns the kernel launches of the phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.live import LiveIndex
+    from repro_torch.core.pipeline import resolve_device
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.serverless import RuntimeConfig, ServerlessRuntime
+
+    f64, cuda = torch.float64, resolve_device(None)
+    n0 = index.partitioning.assign.shape[0]
+    extra = synthetic.make_vector_dataset(
+        "sift1m", scale=LIVE_INSERTS / synthetic.DATASET_PRESETS["sift1m"]["n"],
+        num_queries=1, seed=LIVE_INSERT_SEED)
+    out = {"phase": "live", "rows": int(n0), "M+1": int(max(
+        pt.quant.boundaries.shape[0] for pt in index.parts)),
+        "inserts": int(extra.n), "insert_seed": LIVE_INSERT_SEED}
+
+    def torch_search():
+        return search_torch(index, queries, preds, f64)
+
+    live = LiveIndex(index)
+    rt = with_dtype(f64, lambda: ServerlessRuntime(
+        live, RuntimeConfig(**SERVERLESS_TOPOLOGY)))
+
+    def runtime_matches(label, want):
+        res = with_dtype(f64, lambda: rt.search(queries, preds, k=K))
+        same_answer(f"live runtime {label}", (res.ids, res.dists, res.stats),
+                    want[0], want[2])
+
+    ops.reset_launch_counts()
+    runtime_matches("before mutation", torch_search())
+
+    t0 = time.perf_counter()
+    new_ids = live.insert(extra.vectors, extra.attributes)
+    out["insert_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(LIVE_INSERT_SEED)
+    n1 = index.partitioning.assign.shape[0]
+    victims = rng.choice(n1, size=int(LIVE_DELETE_SHARE * n1), replace=False)
+    t0 = time.perf_counter()
+    deleted = live.delete(victims)
+    out["delete_s"] = time.perf_counter() - t0
+    out.update(deleted=deleted, inserted_ids=[int(new_ids[0]),
+                                              int(new_ids[-1])])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.stacked(f64, cuda)
+    torch.cuda.synchronize()
+    out["restack_f64_s"] = time.perf_counter() - t0
+    out["restacked_rows"] = int(sum(pt.size for pt in index.parts))
+
+    during = torch_search()
+    t0 = time.perf_counter()
+    during_np = index.search(queries, preds, k=K, backend="numpy")
+    out["numpy_search_s"] = time.perf_counter() - t0
+    same_answer("live tombstone phase (torch vs numpy)", during,
+                during_np[0], during_np[2])
+    dead = np.intersect1d(during[0].ravel(), victims)
+    if dead.size:
+        raise AssertionError(f"live: tombstoned ids came back: {dead[:10]}")
+    runtime_matches("tombstone phase", during)
+    out["new_ids_returned"] = int(np.isin(during[0], new_ids).sum())
+
+    dirty = live.dirty_partitions()
+    if len(dirty) < 2:
+        raise AssertionError(f"live: {len(dirty)} dirty partitions, not two")
+    pid_drop, pid_req = dirty[0], dirty[-1]
+    t0 = time.perf_counter()
+    live.compact(pid_drop, requantize=False)
+    out["compact_drop_s"] = time.perf_counter() - t0
+    after_drop = torch_search()
+    same_answer("live drop-only compaction", after_drop, during[0], during[2])
+    t0 = time.perf_counter()
+    live.compact(pid_req, requantize=True)
+    out["compact_requantize_s"] = time.perf_counter() - t0
+    after_req = torch_search()
+    after_req_np = index.search(queries, preds, k=K, backend="numpy")
+    same_answer("live requantized compaction (torch vs numpy)", after_req,
+                after_req_np[0], after_req_np[2])
+    if after_req[2] != during[2]:
+        raise AssertionError("live: requantized compaction changed the "
+                             "SearchStats")
+    if np.intersect1d(after_req[0].ravel(), victims).size:
+        raise AssertionError("live: tombstoned ids came back after "
+                             "compaction")
+    runtime_matches("after compaction", after_req)
+    counts = ops.launch_counts()
+    out.update(
+        compacted={"drop_only": int(pid_drop), "requantized": int(pid_req)},
+        dirty_after=list(live.dirty_partitions()),
+        generations=list(live.generations), version=live.version,
+        share_ids_unchanged_by_requantize=float(np.mean(
+            after_req[0] == during[0])),
+        ids_equal_numpy=True, drop_only_bitwise_invisible=True,
+        runtime_equal_torch_backend=True, launches=counts)
+    emit(out)
+    for name in ("hamming_stacked", "adc_batch"):
+        if counts[name] <= 0:
+            raise AssertionError(f"live: {name} never launched")
     return counts
 
 
@@ -1159,10 +1473,12 @@ def main(argv=None) -> int:
                built_in="a worker process, beside Path A's build",
                both_builds_wall_s=builds_s)
 
-    launches_a = run_path("path_a", ds, args.rows_a, index_a, preds,
-                          check_f32=True, timed_batches=args.timed_batches)
-    launches_b = run_path("path_b", ds, args.rows_b, index_b, preds,
-                          check_f32=False, timed_batches=args.timed_batches)
+    launches_a, gt_a = run_path("path_a", ds, args.rows_a, index_a, preds,
+                                check_f32=True,
+                                timed_batches=args.timed_batches)
+    launches_b, _ = run_path("path_b", ds, args.rows_b, index_b, preds,
+                             check_f32=False,
+                             timed_batches=args.timed_batches)
 
     packed_a, extract_launches = extract_path(index_a)
 
@@ -1184,9 +1500,21 @@ def main(argv=None) -> int:
     heads = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_headdim
     ssd_shape = (LM_REQUESTS * LM_PROMPT_LEN // lm_cfg.ssm_chunk, heads,
                  lm_cfg.ssm_chunk, lm_cfg.ssm_state, lm_cfg.ssm_headdim)
-    entries = check_kernels(index_a, index_b, ds.queries.astype("float64"),
-                            preds, {**launches, **per_path}, packed_a,
-                            ssd_shape)
+    queries = ds.queries.astype("float64")
+    entries = check_kernels(index_a, index_b, queries, preds,
+                            {**launches, **per_path}, packed_a, ssd_shape)
+    # The new phases come after the kernels phase, which must see the
+    # indexes unmutated; their launches join the kernels line below.
+    by_phase = {"path_a": launches_a, "path_b": launches_b,
+                "serverless_local": serverless_phase(
+                    index_a, queries, preds, gt_a, args.rows_a),
+                "live": live_phase(index_b, queries, preds)}
+    for entry in entries:
+        if entry["name"] in ("hamming_stacked", "adc_direct", "adc_batch"):
+            entry["launches_by_phase"] = {
+                phase: counts[entry["name"]]
+                for phase, counts in by_phase.items()}
+            entry["launches"] = sum(entry["launches_by_phase"].values())
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})
     print(card, flush=True)

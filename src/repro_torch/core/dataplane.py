@@ -96,6 +96,11 @@ class StackedIndex:
     def device(self) -> torch.device:
         return self.low_packed.device
 
+    def part(self, pid: int) -> "StackedIndex":
+        """Partition ``pid`` as a one-partition stack of views (no copy)."""
+        return StackedIndex(**{f.name: getattr(self, f.name)[pid:pid + 1]
+                               for f in dataclasses.fields(self)})
+
 
 def part_stack_arrays(pt, *, n_max: int, m1: int, d: int,
                       dtype=np.float32,

@@ -27,7 +27,8 @@ Two query data planes execute Stages 3–5, selected by
 
 :func:`index_to_arrays` / :func:`index_from_arrays` carry a built index
 across as plain numpy arrays — also a reference-built one, since the
-reader goes by attribute name.
+reader goes by attribute name — with a live index's tombstones and mutation
+ledger (generations, version, segment blocks, dirty partitions).
 """
 
 from __future__ import annotations
@@ -180,6 +181,9 @@ class SquashIndex:
         # when set, dead rows fail the Stage 1 filter and are masked again in
         # Stage 3 on every backend.
         self.live_mask: Optional[np.ndarray] = None
+        # The owning LiveIndex (set by core/live.py), from which the
+        # serverless runtime pulls mutation events.
+        self.live_owner = None
         # Optional recall-targeted calibration (core/autotune.py): when set,
         # per-partition keep fractions + a calibrated floor replace the
         # static hamming_perc / min_hamming_keep in every data plane.
@@ -494,8 +498,14 @@ def index_to_arrays(index) -> Dict[str, np.ndarray]:
 
     Reads the index by attribute name only (``parts[i].quant.boundaries``,
     ``attr_index.codes``, ...), so it accepts this package's ``SquashIndex``
-    and the JAX package's alike without importing the latter.
+    and the JAX package's alike without importing the latter, or either's
+    ``LiveIndex`` wrapper. A live index also carries its ledger under
+    ``live.*``: generations (P,), version, dirty partitions, and the segment
+    blocks as (pid, lo, hi, generation) rows.
     """
+    base = getattr(index, "base", None)
+    if base is not None and getattr(base, "live_owner", None) is index:
+        index = base
     out: Dict[str, np.ndarray] = {
         "dim": np.asarray(index.dim, np.int64),
         "num_parts": np.asarray(len(index.parts), np.int64),
@@ -510,6 +520,15 @@ def index_to_arrays(index) -> Dict[str, np.ndarray]:
     }
     if getattr(index, "live_mask", None) is not None:
         out["live_mask"] = np.asarray(index.live_mask, bool)
+    live = getattr(index, "live_owner", None)
+    if live is not None:
+        p = len(index.parts)
+        out["live.generations"] = np.asarray(live.generations, np.int64)
+        out["live.version"] = np.asarray(live.version, np.int64)
+        out["live.dirty"] = np.asarray(live.dirty_partitions(), np.int64)
+        out["live.segments"] = np.asarray(
+            [(pid, b.lo, b.hi, b.generation) for pid in range(p)
+             for b in live.segments_of(pid)], np.int64).reshape(-1, 4)
     for i, pt in enumerate(index.parts):
         pre = f"part{i}."
         out[pre + "vector_ids"] = np.asarray(pt.vector_ids)
@@ -531,7 +550,12 @@ def index_to_arrays(index) -> Dict[str, np.ndarray]:
 
 def index_from_arrays(arrays: Dict[str, np.ndarray],
                       config: Optional[SquashConfig] = None) -> SquashIndex:
-    """Rebuild a :class:`SquashIndex` from :func:`index_to_arrays` output."""
+    """Rebuild a :class:`SquashIndex` from :func:`index_to_arrays` output.
+
+    A carried live ledger comes back as a ``LiveIndex`` owning the index
+    (``index.live_owner``), with its tombstones, generations, version,
+    dirty partitions and segment blocks; its event log starts empty.
+    """
     config = config or SquashConfig()
     dim = int(arrays["dim"])
     parts: List[PartitionIndex] = []
@@ -562,6 +586,13 @@ def index_from_arrays(arrays: Dict[str, np.ndarray],
         codes=arrays["attr.codes"], boundaries=arrays["attr.boundaries"],
         centers=arrays["attr.centers"], cells=arrays["attr.cells"])
     index = SquashIndex(config, partitioning, parts, attr_index, dim=dim)
+    if "live.version" in arrays:
+        from repro_torch.core.live import LiveIndex
+
+        LiveIndex.from_ledger(
+            index, generations=arrays["live.generations"],
+            version=int(arrays["live.version"]), dirty=arrays["live.dirty"],
+            segments=arrays["live.segments"])
     if "live_mask" in arrays:
         index.live_mask = arrays["live_mask"]
     return index

@@ -25,6 +25,7 @@ from repro_torch.core.pipeline import SquashConfig, SquashIndex  # noqa: E402
 from repro_torch.core import segments  # noqa: E402
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ops, ref, ssd  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
 
 ADC_RTOL = 1e-5
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
@@ -208,6 +209,42 @@ def test_search_on_card_equals_numpy(cuda, max_bits):
     table = m1 <= dataplane.ADC_TABLE_MAX_M1
     assert counts["hamming_stacked"] == 1
     assert counts["adc_batch" if table else "adc_direct"] == 1
+
+
+@pytest.mark.parametrize("max_bits", [8, 5])
+def test_serverless_runtime_on_card_equals_cpu(cuda, max_bits):
+    """A local serverless runtime with its QPs on the card: f64 ids, stats
+    and pinned modeled makespan equal the same runtime on the CPU, and each
+    QP invocation went through the kernels of its Stage 4 branch."""
+    rng = np.random.default_rng(max_bits + 1)
+    centers = rng.normal(0, 5, size=(8, 32))
+    vecs = centers[rng.integers(0, 8, 4000)] + rng.normal(size=(4000, 32))
+    attrs = rng.integers(0, 4, size=(4000, 2)).astype(np.float64)
+    index = SquashIndex.build(vecs, attrs, SquashConfig(
+        num_partitions=4, kmeans_iters=3, lloyd_iters=4,
+        max_bits_per_dim=max_bits))
+    queries = vecs[:20] + rng.normal(scale=0.1, size=(20, 32))
+    kw = dict(branching=2, max_level=2, qa_compute_s=0.05, qp_compute_s=0.05,
+              co_compute_s=0.01)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ops.reset_launch_counts()
+        card = ServerlessRuntime(index, RuntimeConfig(**kw)).search(
+            queries, [], k=10)
+        counts = ops.launch_counts()
+        cpu = ServerlessRuntime(index, RuntimeConfig(device="cpu", **kw)
+                                ).search(queries, [], k=10)
+    finally:
+        torch.set_default_dtype(prev)
+    np.testing.assert_array_equal(card.ids, cpu.ids)
+    assert card.stats == cpu.stats
+    assert card.trace.makespan_s == cpu.trace.makespan_s
+    n_qp = card.trace.invocations("qp")
+    m1 = max(p.quant.boundaries.shape[0] for p in index.parts)
+    table = m1 <= dataplane.ADC_TABLE_MAX_M1
+    assert n_qp > 0 and counts["hamming_stacked"] == n_qp
+    assert counts["adc_batch" if table else "adc_direct"] == n_qp
 
 
 @pytest.mark.parametrize("seg_bits,bits,n", [

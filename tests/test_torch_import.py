@@ -6,12 +6,15 @@
   ``tools/kernel_variants.py``, names ``jax`` or ``repro`` in an import
   statement;
 * entry points default to the card: without CUDA the torch search
-  backend, the LM ``Engine`` and ``python -m repro_torch.launch.serve``
-  raise (naming ``device="cpu"``) instead of running on the CPU, and the
-  kernel wrappers refuse CPU tensors.
+  backend, the serverless runtime and the service's serverless route, the
+  LM ``Engine`` and ``python -m repro_torch.launch.serve`` raise (naming
+  ``device="cpu"``) instead of running on the CPU, a QP worker bound to the
+  card raises instead of moving to the CPU, a process pool of CUDA workers
+  refuses ``fork``, and the kernel wrappers refuse CPU tensors.
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -27,7 +30,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import adc_lookup, bitpack, build, hamming, ops, ref, ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.serve import Engine  # noqa: E402
+from repro_torch.serve import Engine, ServiceConfig, VectorSearchService  # noqa: E402
+from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
+from repro_torch.serverless import transport as tp  # noqa: E402
+from repro_torch.serverless import workers as wk  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
@@ -71,7 +77,26 @@ def test_port_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30      # every module of both slices
+    assert int(out.stdout.strip()) >= 46      # every module of all slices
+
+
+# The modules of the live index and the serverless runtime, at the
+# reference's paths.
+SLICE5_MODULES = [
+    "core/live.py", "core/invocation.py", "core/cost_model.py", "core/dre.py",
+    "obs/__init__.py", "obs/metrics.py", "obs/spans.py", "obs/export.py",
+    "obs/slo.py", "serverless/__init__.py", "serverless/events.py",
+    "serverless/payload.py", "serverless/traces.py", "serverless/nodes.py",
+    "serverless/workers.py", "serverless/transport.py",
+    "serverless/runtime.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE5_MODULES)
+def test_slice5_module_stands_beside_its_reference(rel):
+    assert os.path.isfile(os.path.join(PORT, rel))
+    assert os.path.isfile(os.path.join(REPO, "src", "repro", rel))
+    roots = set(_imported_roots(os.path.join(PORT, rel)))
+    assert "jax" not in roots and "repro" not in roots, roots
 
 
 @pytest.mark.parametrize("path", list(_port_files()),
@@ -102,6 +127,62 @@ def test_search_without_device_raises_without_cuda(monkeypatch):
     assert ids.shape == (2, 3)
     with pytest.raises(ValueError, match="unknown backend"):
         index.search(vecs[:2], [], k=3, backend="jax")
+
+
+def _tiny_index():
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(600, 16))
+    attrs = rng.integers(0, 4, size=(600, 2)).astype(np.float64)
+    return pipeline.SquashIndex.build(
+        vecs, attrs, pipeline.SquashConfig(num_partitions=2, kmeans_iters=2,
+                                           lloyd_iters=2, max_bits_per_dim=4))
+
+
+def test_serverless_runtime_defaults_to_card_and_raises_without_cuda(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index = _tiny_index()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerlessRuntime(index)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerlessRuntime(index, RuntimeConfig(transport="process"))
+    rt = ServerlessRuntime(index, RuntimeConfig(device="cpu"))
+    assert rt.device == torch.device("cpu")
+    assert rt.search(np.zeros((2, 16)), [], k=3).ids.shape == (2, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RuntimeConfig(transport="socket")
+
+
+def test_service_serverless_route_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index = _tiny_index()
+    svc = VectorSearchService(index, ServiceConfig(backend="serverless"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        svc.query(np.zeros((2, 16)), [], k=3)
+    assert svc.requests == 0
+    svc = VectorSearchService(index, ServiceConfig(backend="serverless",
+                                                   device="cpu"))
+    assert svc.query(np.zeros((2, 16)), [], k=3)[0].shape == (2, 3)
+    assert svc.runtime().device == torch.device("cpu")
+
+
+def test_cuda_workers_refuse_fork_and_never_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index = _tiny_index()
+    init = wk.WorkerInit(role="qp", fn="qp:0", pid=0, dtype="float32",
+                         device="cuda",
+                         bundle=wk.build_qp_bundle(index, 0, torch.float32))
+    with pytest.raises(ValueError, match="fork"):
+        tp.ProcessTransport({"qp:0": (init, 1)}, start_method="fork")
+    prev = torch.get_default_dtype()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            wk.configure_torch(init)
+        wk.configure_torch(dataclasses.replace(init, dtype="float64",
+                                               device="cpu"))
+        assert torch.get_default_dtype() == torch.float64
+    finally:
+        torch.set_default_dtype(prev)
 
 
 def test_engine_defaults_to_card_and_raises_without_cuda(monkeypatch):

@@ -11,7 +11,8 @@ JAX package.
 * the autotune profile equals the reference's, and the torch plane under it
   equals the numpy plane;
 * the chunked ``make_vector_dataset`` equals the reference's bit for bit;
-* the service routes ``numpy | torch | auto`` and rejects unknown backends.
+* the service routes ``numpy | torch | serverless | auto`` and rejects
+  unknown backends.
 """
 
 import dataclasses
@@ -256,8 +257,9 @@ def test_service_routes_and_rejects(carried, data):
     assert svc.stats.queries == 11 and svc.requests == 3
     with pytest.raises(ValueError, match="unknown backend 'jax'"):
         svc.query(ds.queries[:2], preds, backend="jax")
-    with pytest.raises(NotImplementedError, match="serverless"):
-        svc.query(ds.queries[:2], preds, backend="serverless")
-    assert svc.requests == 3
+    ids_s, _, _ = svc.query(ds.queries[:2], preds, backend="serverless")
+    np.testing.assert_array_equal(ids_s, ids_ref[:2])
+    assert svc.requests == 4 and svc.queries_served["serverless"] == 2
+    svc.close()
     with pytest.raises(ValueError):
         VectorSearchService(port, ServiceConfig(backend="jax"))
