@@ -69,6 +69,28 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   transport: batch wall ms, modeled makespan and dollars, invocations, QP
   handler ms, worker start-up seconds and the card memory each QP worker
   adds. Its invoke timeout is raised to 600 s for a cold card.
+* Serverless over sockets (after the serverless phase): the same runtime
+  on Path A's index with ``transport="socket"``: two auto-spawned loopback
+  host processes serve the 10 QP links on the card (one CUDA context per
+  host, each link on its own compute thread) and the 2 CPU QA links over
+  TCP. The cold and warm batches' float64 ids, dists and stats must equal
+  the local run's cold batch, the warm batch must fetch nothing, every QP
+  node must name its host:port; after ``qp:0``'s connection is dropped,
+  one more batch must be equal with ``qp:0`` cold again. Observability is
+  on so that the hosts answer the STATS pull, and every host must report
+  card memory held (``host.cuda_memory_allocated_bytes``). Reported: host
+  spawn and deploy seconds, batch walls, the modeled makespan and
+  dollars, the card memory the fleet adds (``nvidia-smi``, and the
+  compute-apps rows of the host pids), the memory each host holds before
+  and after the reconnect, and the ``transport.socket.*`` counters. The
+  kernels run in the host processes, whose launch counts this process
+  cannot read.
+* Mesh: ``repro_torch.core.distributed.distributed_search`` on a 1 × 1
+  NCCL mesh on the card (a process group on a free loopback port,
+  destroyed after), on Path A (kernels 1 and 2b) and Path B before the
+  live phase mutates it (kernels 1 and 2): float64 ids and dists must
+  equal ``index.search(backend="torch")``; both batch walls are reported
+  beside the torch backend's.
 * Live: Path B's index wrapped in a ``LiveIndex``; 10,000 rows from the
   dataset generator at seed 1 inserted and 1 % of all ids deleted; the
   card's float64 ids must equal the NumPy backend's with no tombstoned id
@@ -79,8 +101,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   compaction and restack seconds are reported.
 
 Launch counters are set to 0 just before each path (LM serve, each search
-path, the extraction, the serverless local run, the live phase) and read
-just after; every kernel must have launched on the path that runs it.
+path, the extraction, the serverless local run, each mesh search, the live
+phase) and read just after; every kernel must have launched on the path
+that runs it.
 Every
 check raises on failure, so the script exits non-zero. The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit from
@@ -498,7 +521,8 @@ def serverless_phase(index, queries, preds, gt, rows):
     ids and stats must equal ``index.search(backend="torch")``, f32 recall;
     then the process transport with one spawned QP worker per partition on
     the card (its own CUDA context each), whose f64 ids must equal the
-    local run's. Returns the kernel launches of the local f64 run."""
+    local run's. Returns the kernel launches of the local f64 run and its
+    cold result."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -607,7 +631,209 @@ def serverless_phase(index, queries, preds, gt, rows):
         "context_per_qp_worker_mb": (mem1 - mem0) / n_qp - slab_mb,
         "invoke_timeout_s": SERVERLESS_INVOKE_TIMEOUT_S}
     emit(out)
-    return counts
+    return counts, cold
+
+
+def gpu_compute_apps() -> dict:
+    """pid → MB of card memory, from ``nvidia-smi --query-compute-apps``
+    (pids as the driver sees them, which a container may renumber)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout
+    rows = {}
+    for line in out.splitlines():
+        pid, _, mb = line.partition(",")
+        if pid.strip().isdigit():
+            rows[int(pid)] = float(mb.strip() or 0)
+    return rows
+
+
+def _host_card_bytes(snapshots) -> dict:
+    """host:port/pid label → the CUDA bytes its STATS reply reports."""
+    return {source: snap.get("gauges", {}).get(
+                "host.cuda_memory_allocated_bytes")
+            for source, snap in snapshots.items()}
+
+
+def serverless_socket_phase(index, queries, preds, local_cold, rows):
+    """The serverless runtime over the socket transport on Path A's index:
+    two auto-spawned loopback hosts serve the 10 QP links on the card (one
+    CUDA context per host) and the 2 QA links. The cold and warm batches'
+    f64 ids, dists and stats must equal the local run's cold batch, the warm
+    batch must fetch nothing and every QP node names its host:port; then
+    ``qp:0``'s connection is dropped and one more batch must still be
+    equal, with ``qp:0`` cold again. Observability is on, so that each
+    host answers the STATS pull, whose ``host.cuda_memory_allocated_bytes``
+    gauge shows every host holding card memory (and the memory after the
+    reconnect, when the old link's slab must be gone)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serverless import RuntimeConfig, ServerlessRuntime
+
+    f64 = torch.float64
+    out = {"phase": "serverless_socket", "rows": int(rows),
+           "P": len(index.parts), "Q": int(queries.shape[0]), "k": K,
+           **SERVERLESS_TOPOLOGY}
+    want = (local_cold.ids, local_cold.dists, local_cold.stats)
+
+    def search(rt):
+        t0 = time.perf_counter()
+        res = rt.search(queries, preds, k=K)
+        return res, time.perf_counter() - t0
+
+    def check(label, res):
+        same_answer(f"serverless socket {label}",
+                    (res.ids, res.dists, res.stats), want[0], want[2])
+        if not np.array_equal(res.dists, want[1]):
+            raise AssertionError(f"serverless socket {label}: dists differ")
+        qp = [n for n in res.trace.nodes if n.kind == "qp"]
+        if not qp or not all(n.worker_host for n in qp):
+            raise AssertionError(f"serverless socket {label}: a QP node "
+                                 "names no host")
+
+    mem0, apps0 = gpu_memory_used_mb(), gpu_compute_apps()
+    t0 = time.perf_counter()
+    rt = with_dtype(f64, lambda: ServerlessRuntime(index, RuntimeConfig(
+        transport="socket", invoke_timeout_s=SERVERLESS_INVOKE_TIMEOUT_S,
+        obs_enabled=True, **SERVERLESS_TOPOLOGY)))
+    try:
+        transport = rt.transport          # bundles built, hosts up, deployed
+        startup_s = time.perf_counter() - t0
+        cold, cold_s = search(rt)
+        mem1, apps1 = gpu_memory_used_mb(), gpu_compute_apps()
+        warm, warm_s = search(rt)
+        card_bytes = _host_card_bytes(transport.collect_metrics())
+        qp0_host = transport.worker_hosts("qp:0")[0]
+        transport.drop_connection("qp:0")
+        again, again_s = search(rt)
+        card_bytes_after = _host_card_bytes(transport.collect_metrics())
+        counters = {name: v for name, v in
+                    REGISTRY.fleet_snapshot()["merged"]["counters"].items()
+                    if name.startswith("transport.socket.")}
+    finally:
+        rt.close()
+        REGISTRY.disable()
+        REGISTRY.reset()
+    for label, res in (("cold", cold), ("warm", warm), ("after drop", again)):
+        check(label, res)
+    if rt.device.type != "cuda":
+        raise AssertionError("serverless socket: QP links not on the card")
+    if warm.trace.dre.s3_gets != 0:
+        raise AssertionError("serverless socket: the warm batch refetched")
+    if not any(n.node == "qp:0" and not n.warm for n in again.trace.nodes):
+        raise AssertionError("serverless socket: qp:0 is not cold after its "
+                             "connection was dropped")
+    host_pids = sorted({n.worker_pid for n in cold.trace.nodes
+                        if n.kind in ("qa", "qp")})
+    if len(card_bytes) != len(host_pids) or not all(
+            (b or 0) > 0 for b in card_bytes.values()):
+        raise AssertionError(f"serverless socket: a host holds no card "
+                             f"memory: {card_bytes}")
+    n_qp = len(index.parts)
+    added = mem1 - mem0
+    qp_ms = [n.wall_compute_s * 1e3 for n in cold.trace.nodes
+             if n.kind == "qp"]
+    out["socket_f64"] = {
+        "cold": run_trace_summary(cold, cold_s),
+        "warm": run_trace_summary(warm, warm_s),
+        "after_drop_qp0": {**run_trace_summary(again, again_s),
+                           "worker_retries": again.trace.worker_retries},
+        "ids_dists_stats_equal_local": True,
+        "hosts": len(host_pids),
+        "startup_s": startup_s,
+        "host_spawn_s": transport.spawn_s,
+        "deploy_s": transport.deploy_s,
+        "cold_worker_retries": cold.trace.worker_retries,
+        "qp_handler_ms_sum_cold": float(sum(qp_ms)),
+        "card_memory_added_mb": added,
+        "card_memory_per_host_mb": added / len(host_pids),
+        "card_memory_per_qp_link_mb": added / n_qp,
+        "compute_apps_before": apps0,
+        "compute_apps_after": apps1,
+        "host_pids": host_pids,
+        "host_pids_in_compute_apps": sorted(set(host_pids) & set(apps1)),
+        "host_cuda_allocated_mb": {k: v / 2**20
+                                   for k, v in card_bytes.items()},
+        "host_cuda_allocated_mb_after_qp0_reconnect": {
+            k: (v or 0) / 2**20 for k, v in card_bytes_after.items()},
+        "qp0_host": qp0_host,
+        "transport_socket_counters": counters,
+        "invoke_timeout_s": SERVERLESS_INVOKE_TIMEOUT_S}
+    emit(out)
+
+
+def mesh_phase(index_a, index_b, queries, preds):
+    """``repro_torch.core.distributed.distributed_search`` on a 1 × 1 NCCL
+    mesh on the card (its process group on a free loopback port, destroyed
+    after): on Path A (kernels 1 and 2b) and Path B (kernels 1 and 2), in
+    f64, ids and dists must equal ``index.search(backend="torch")``. The
+    counts are set to 0 just before each mesh search and read just after;
+    returns their sum over both paths."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.distributed import distributed_search
+    from repro_torch.kernels import ops
+
+    f64 = torch.float64
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    out = {"phase": "mesh", "mesh": [1, 1], "backend": dist.get_backend(),
+           "Q": int(queries.shape[0]), "k": K}
+    total = None
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        def timed(fn):
+            t0 = time.perf_counter()
+            res = fn()
+            return res, (time.perf_counter() - t0) * 1e3
+
+        for name, index, stage4 in (("path_a", index_a, "adc_direct"),
+                                    ("path_b", index_b, "adc_batch")):
+            want, torch_ms = timed(
+                lambda: search_torch(index, queries, preds, f64))
+            ops.reset_launch_counts()
+            (ids, dists), mesh_ms = timed(lambda: with_dtype(
+                f64, lambda: distributed_search(index, queries, preds, K,
+                                                mesh=mesh)))
+            counts = ops.launch_counts()
+            # Once more each, in turns: the first mesh call of the run also
+            # opens the NCCL communicator.
+            again, mesh_ms2 = timed(lambda: with_dtype(
+                f64, lambda: distributed_search(index, queries, preds, K,
+                                                mesh=mesh)))
+            _, torch_ms2 = timed(
+                lambda: search_torch(index, queries, preds, f64))
+            for got in ((ids, dists), again):
+                if not (np.array_equal(got[0], want[0])
+                        and np.array_equal(got[1], want[1])):
+                    raise AssertionError(f"mesh {name}: ids or dists differ "
+                                         "from the torch backend's")
+            for kernel in ("hamming_stacked", stage4):
+                if counts[kernel] <= 0:
+                    raise AssertionError(f"mesh {name}: {kernel} never "
+                                         "launched")
+            total = counts if total is None else {
+                k: total[k] + counts[k] for k in total}
+            out[name] = {"batch_wall_ms": [mesh_ms, mesh_ms2],
+                         "torch_backend_batch_wall_ms": [torch_ms, torch_ms2],
+                         "ids_dists_equal_torch_backend": True,
+                         "launches": counts}
+    finally:
+        dist.destroy_process_group()
+    emit(out)
+    return total
 
 
 def live_phase(index, queries, preds):
@@ -1031,6 +1257,23 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
         4 * (g + n * g + n), 3 * n * g, shape={"N": n, "G": g},
         tolerance="exact", path="none: kernel 1 at Q = P = 1",
         call_ms=cuda_ms(lambda: hamming.packed_hamming(q1, db1), 20)))
+    # view 1v: packed_hamming_multi = kernel 1 at P = 1 (the port calls
+    # hamming_stacked at that shape; it has no wrapper of its own)
+    qm = qbits[:, :1].contiguous()
+    dbm = stacked.low_packed[:1].contiguous()
+    if not torch.equal(hamming.hamming_stacked(qm, dbm),
+                       ref.hamming_stacked_ref(qm, dbm)):
+        raise AssertionError("kernel 1 at P = 1 differs from its plain "
+                             "version")
+    entries.append(kernel_entry(
+        "packed_hamming_multi", "src/repro_torch/kernels/csrc/hamming.cu",
+        "src/repro/kernels/hamming.py:130", 0, 0,
+        device_ms(lambda: hamming.hamming_stacked(qm, dbm), 20),
+        cuda_ms(lambda: ref.hamming_stacked_ref(qm, dbm), 3),
+        4 * (qn * g + n * g + qn * n), 3 * qn * n * g,
+        shape={"Q": qn, "N": n, "G": g}, tolerance="exact",
+        path="none: kernel 1 at P = 1",
+        call_ms=cuda_ms(lambda: hamming.hamming_stacked(qm, dbm), 20)))
 
     # --- kernel 2b (direct) at Path A's shapes, both float widths -------
     entries.append(check_direct(index_a, queries, preds, launches, stacked,
@@ -1505,9 +1748,13 @@ def main(argv=None) -> int:
                             {**launches, **per_path}, packed_a, ssd_shape)
     # The new phases come after the kernels phase, which must see the
     # indexes unmutated; their launches join the kernels line below.
+    # The socket and mesh phases come before live, which mutates Path B.
+    serverless_counts, local_cold = serverless_phase(
+        index_a, queries, preds, gt_a, args.rows_a)
+    serverless_socket_phase(index_a, queries, preds, local_cold, args.rows_a)
     by_phase = {"path_a": launches_a, "path_b": launches_b,
-                "serverless_local": serverless_phase(
-                    index_a, queries, preds, gt_a, args.rows_a),
+                "serverless_local": serverless_counts,
+                "mesh": mesh_phase(index_a, index_b, queries, preds),
                 "live": live_phase(index_b, queries, preds)}
     for entry in entries:
         if entry["name"] in ("hamming_stacked", "adc_direct", "adc_batch"):

@@ -341,9 +341,16 @@ class SquashIndex:
         return all_ids, all_dists, stats
 
     def stacked(self, dtype: torch.dtype, device) -> "dataplane.StackedIndex":
-        """The stacked payload on ``device`` in ``dtype`` (built once)."""
+        """The stacked payload on ``device`` in ``dtype`` (built once).
+
+        ``"cuda"`` and ``"cuda:<current device>"`` name one device and share
+        one payload.
+        """
         from repro_torch.core import dataplane
 
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         key = (dtype, str(device))
         stacked = self._stacked_cache.get(key)
         if stacked is None:

@@ -54,8 +54,11 @@ class ServiceConfig:
     cache_enabled: bool = False
     result_cache_bytes: int = 64 * 1024 * 1024
     # Execution substrate of the serverless backend: None keeps the
-    # RuntimeConfig's choice; "local" or "process" pins it.
+    # RuntimeConfig's choice; "local", "process" or "socket" pins it.
     transport: Optional[str] = None
+    # Socket-transport host fleet ("host:port", ...). None keeps the
+    # RuntimeConfig's choice (auto-spawned loopback hosts by default).
+    hosts: Optional[Tuple[str, ...]] = None
     recall_target: Optional[float] = None
     calibration_sample: int = 64
     calibration_seed: int = 0
@@ -114,6 +117,9 @@ class VectorSearchService:
                     and cfg.transport != self.config.transport):
                 cfg = dataclasses.replace(cfg,
                                           transport=self.config.transport)
+            if (self.config.hosts is not None
+                    and cfg.hosts != self.config.hosts):
+                cfg = dataclasses.replace(cfg, hosts=self.config.hosts)
             self._runtime = ServerlessRuntime(self.index, cfg)
         return self._runtime
 

@@ -15,14 +15,23 @@ encoded size, with an explicit overflow policy:
 
 A payload that cannot be split further (a single query) always raises.
 
-The port of the JAX package's ``repro.serverless.payload``: the same codec,
-byte for byte. The length-prefixed frame protocol of the reference's socket
-transport comes with the socket transport, which is not ported yet.
+The module also defines the **length-prefixed frame protocol** the socket
+transport speaks over TCP (``serverless.socket_transport`` on the client
+side, ``repro_torch.serverless.host`` on the server side): one frame = a 1-byte
+kind tag + a little-endian uint32 body length + the body. Request/response
+frames carry ``encode_message`` bytes and are held to the same 6 MB budget
+the in-process hops model; INIT frames carry the function *deployment* (the
+pickled ``WorkerInit`` bundle — the analogue of the S3 code package, not a
+synchronous invocation payload) and are budget-exempt.
+
+The port of the JAX package's ``repro.serverless.payload``: the same codec
+and the same frames, byte for byte.
 """
 
 from __future__ import annotations
 
 import json
+import pickle
 import struct
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -35,6 +44,9 @@ __all__ = [
     "encode_message", "decode_message", "chunk_request", "response_chunks",
     "predicates_to_json", "predicates_from_json",
     "OBS_EXTRA_KEY", "inject_span_context", "extract_span_context",
+    "FRAME_INIT", "FRAME_REQ", "FRAME_RESP", "FRAME_PING", "FRAME_PONG",
+    "FRAME_SHUTDOWN", "FRAME_STATS", "write_frame", "read_frame",
+    "encode_init", "decode_init",
 ]
 
 # AWS Lambda request/response limit for synchronous invocations (6 MB).
@@ -163,7 +175,8 @@ def response_chunks(nbytes: int, *, max_bytes: int, policy: str) -> int:
 
 # Key under which a distributed-trace span context rides the invocation's
 # ``extra`` envelope. The context travels *outside* the budgeted payload —
-# pickled with ``extra`` over process pipes — so request-byte
+# pickled with ``extra`` over process pipes, as JSON meta inside the socket
+# REQ frame's codec wrapper (FRAME_SLACK headroom) — so request-byte
 # accounting and the 6 MB budget are bitwise-identical with tracing on or
 # off. The value is a plain ``{"run": ..., "span": ...}`` dict
 # (``repro_torch.obs.spans.SpanContext.to_wire``); this module stays
@@ -188,6 +201,86 @@ def extract_span_context(extra) -> Dict:
         return None
     ctx = extra.get(OBS_EXTRA_KEY)
     return dict(ctx) if ctx else None
+
+
+# ------------------------------------------------------------ socket frames
+
+FRAME_INIT = b"I"       # function deployment: pickled WorkerInit (no budget)
+FRAME_REQ = b"Q"        # one invocation request (codec body; budgeted)
+FRAME_RESP = b"R"       # one invocation response page (codec body; budgeted)
+FRAME_PING = b"P"       # client liveness probe (hang guard)
+FRAME_PONG = b"O"       # host heartbeat / deploy-ack / ping answer
+FRAME_SHUTDOWN = b"X"   # close this worker connection cleanly
+# Fleet-telemetry pull (PR 10): the client sends an empty-body STATS frame;
+# the host's receiver thread answers with a STATS frame whose body is
+# ``encode_message({"os_pid": ..., "snapshot": <registry snapshot>})`` — the
+# host process's *cumulative* metrics registry dump. Telemetry is control
+# plane, like PING/PONG: it never rides the budgeted invocation payload, so
+# request-byte accounting is identical with aggregation on or off.
+FRAME_STATS = b"S"      # metrics-registry pull (request and reply)
+
+_FRAME_HEADER = struct.Struct("<cI")
+
+# REQ/RESP frames wrap the budgeted invocation payload in a small codec
+# envelope (rid, extra, pagination fields); the per-frame cap allows the
+# envelope this much headroom so the *inner* payload is held to exactly the
+# Lambda budget, with no double-counting of wrapper bytes.
+FRAME_SLACK = 64 * 1024
+
+
+def write_frame(sock, kind: bytes, body: bytes = b"", *,
+                max_bytes: int = None) -> None:
+    """Send one length-prefixed frame; caller serializes access to ``sock``.
+
+    ``max_bytes`` applies the per-frame payload budget at the socket layer
+    itself — an over-budget body raises :class:`PayloadOverflowError` before
+    any byte hits the wire, so a mis-chunked request can never sneak past
+    the Lambda-style cap just because it travels over TCP.
+    """
+    if max_bytes is not None and len(body) > max_bytes:
+        raise PayloadOverflowError(
+            f"socket frame body of {len(body)} B exceeds the "
+            f"{max_bytes} B per-frame budget")
+    sock.sendall(_FRAME_HEADER.pack(kind, len(body)) + body)
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("socket closed mid-frame")
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def read_frame(sock) -> Tuple[bytes, bytes]:
+    """Receive one frame → ``(kind, body)``; raises ConnectionError on EOF."""
+    kind, length = _FRAME_HEADER.unpack(_recv_exact(sock, _FRAME_HEADER.size))
+    return kind, _recv_exact(sock, length)
+
+
+def encode_init(init, max_bytes: int) -> bytes:
+    """Serialize a FRAME_INIT body: ``(WorkerInit bundle, payload budget)``.
+
+    The deployment bundle carries arbitrary callables and index state, so it
+    is the one wire body that legitimately needs pickle — confining the
+    ``pickle.dumps`` here keeps every other module codec-only (the
+    wire-discipline invariant squashlint enforces). INIT frames are exempt
+    from the 6 MB budget: deployment is the control plane, not a Lambda
+    invocation.
+    """
+    return pickle.dumps((init, max_bytes), protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def decode_init(body: bytes):
+    """Inverse of :func:`encode_init` → ``(init, max_bytes)``.
+
+    Only ever called by the worker host on its deployment socket — the
+    connecting side is trusted (same user, loopback fleet); invocation
+    request/response bodies never go through pickle.
+    """
+    return pickle.loads(body)
 
 
 def predicates_to_json(predicates: Sequence[Predicate]) -> List[Dict]:

@@ -42,12 +42,18 @@ see ``serverless.transport``):
   *modeled* §3.5 timeline is still assembled — with measured handler/fetch
   times folded in — and ``RunTrace.measured_makespan_s`` plus the per-node
   ``wall_*`` fields report the real clock next to it.
-* ``"socket"`` — the reference's TCP worker fleet; not ported yet
-  (``NotImplementedError``).
+* ``"socket"`` — same worker bodies, but each one lives behind a TCP
+  connection to a ``repro_torch.serverless.host`` process
+  (``serverless.socket_transport``): pass ``hosts=("10.0.0.5:7070", ...)``
+  to spread the QA/QP fleet across machines, or let the runtime auto-spawn
+  loopback hosts. Connection loss is handled like a worker crash —
+  heartbeat-guarded detection, reconnect with backoff, bounded
+  re-invocation — and ``NodeTrace.worker_host`` records who served what.
 
 Parity contract: for the same index/queries/predicates/k, the returned ids
 are **bitwise identical** across ``transport="local"``,
-``transport="process"`` and ``SquashIndex.search(backend="torch")`` (and the
+``transport="process"``, ``transport="socket"`` and
+``SquashIndex.search(backend="torch")`` (and the
 reference runtime, in float64) — every
 substrate runs the same plane over the same partition slices, and
 the ascending-partition stable merge reproduces the reference tie-breaking.
@@ -62,7 +68,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,11 +108,15 @@ class RuntimeConfig:
     sequential: bool = False           # CO-invokes-everything strawman (Fig. 7)
 
     # Execution substrate (serverless.transport).
-    transport: str = "local"           # "local" | "process"
+    transport: str = "local"           # "local" | "process" | "socket"
     qa_workers: int = 2                # allocator-function pool size (real)
     worker_start_method: str = "spawn"  # multiprocessing start method
     invoke_timeout_s: float = 180.0    # per-invocation hang guard (real)
     max_worker_retries: int = 2        # re-invocations after a worker crash
+    hosts: Optional[Tuple[str, ...]] = None  # socket: "host:port" fleet; None
+                                             # auto-spawns loopback hosts
+    auto_hosts: int = 2                # loopback hosts when hosts is None
+    heartbeat_s: float = 0.25          # socket link liveness probe interval
     # Where the QPs hold their partition slices and run the plane: None
     # means the CUDA card (raises without CUDA), "cpu" the CPU.
     device: Optional[str] = None
@@ -167,10 +177,6 @@ class RuntimeConfig:
         if self.overflow not in pl.OVERFLOW_POLICIES:
             raise ValueError(f"unknown overflow policy {self.overflow!r}; "
                              f"expected {pl.OVERFLOW_POLICIES}")
-        if self.transport == "socket":
-            raise NotImplementedError(
-                "transport='socket' is not ported yet (ROADMAP.md, Queue 1: "
-                "serverless/socket_transport.py and host.py)")
         if self.transport not in tp.TRANSPORTS:
             raise ValueError(f"unknown transport {self.transport!r}; "
                              f"expected {tp.TRANSPORTS}")
@@ -320,9 +326,13 @@ class ServerlessRuntime:
         return self.cfg.transport == "process"
 
     @property
+    def is_socket(self) -> bool:
+        return self.cfg.transport == "socket"
+
+    @property
     def is_real(self) -> bool:
-        """Real workers behind a process boundary, as opposed to the modeled
-        inline LocalTransport."""
+        """Real workers behind a boundary (process pipes or TCP links), as
+        opposed to the modeled inline LocalTransport."""
         return self.cfg.transport != "local"
 
     @property
@@ -332,6 +342,8 @@ class ServerlessRuntime:
         if self._transport is None:
             if self.is_process:
                 self._transport = self._build_process_transport()
+            elif self.is_socket:
+                self._transport = self._build_socket_transport()
             else:
                 self._transport = tp.LocalTransport(self._local_handlers())
         return self._transport
@@ -348,7 +360,8 @@ class ServerlessRuntime:
         return {"qa": qa, "qp": qp}
 
     def _worker_inits(self) -> Dict:
-        """Function → (WorkerInit, pool size): the fleet's deployment map.
+        """Function → (WorkerInit, pool size): the fleet's deployment map,
+        shared by the process and socket substrates.
 
         QP workers hold their slices on the runtime's device; QA workers run
         NumPy only and stay on the CPU.
@@ -370,21 +383,44 @@ class ServerlessRuntime:
                 1)
         return inits
 
-    def _build_process_transport(self) -> tp.ProcessTransport:
-        cfg = self.cfg
-        inits = self._worker_inits()
+    def _build_kernels_for_workers(self) -> None:
+        """Build the search kernels here, before any worker starts, so that
+        QP workers (or host threads) only load the libraries instead of each
+        running nvcc."""
         if self.device.type == "cuda":
-            # Build the search kernels once here, so that the QP workers
-            # only load the libraries instead of each running nvcc.
             from repro_torch.kernels import build
 
             build.build_all(["hamming", "adc_lookup"])
+
+    def _build_process_transport(self) -> tp.ProcessTransport:
+        cfg = self.cfg
+        inits = self._worker_inits()
+        self._build_kernels_for_workers()
         return tp.ProcessTransport(
             inits,
             eager=not cfg.sequential,
             start_method=cfg.worker_start_method,
             invoke_timeout_s=cfg.invoke_timeout_s,
             max_retries=cfg.max_worker_retries)
+
+    def _build_socket_transport(self):
+        # Imported lazily so the TCP machinery never loads for in-process
+        # runs (and LocalTransport stays importable with no socket support).
+        from repro_torch.serverless.socket_transport import SocketTransport
+
+        cfg = self.cfg
+        inits = self._worker_inits()
+        self._build_kernels_for_workers()
+        return SocketTransport(
+            inits,
+            hosts=cfg.hosts,
+            auto_hosts=cfg.auto_hosts,
+            eager=not cfg.sequential,
+            start_method=cfg.worker_start_method,
+            invoke_timeout_s=cfg.invoke_timeout_s,
+            max_retries=cfg.max_worker_retries,
+            max_payload_bytes=cfg.max_payload_bytes,
+            heartbeat_s=cfg.heartbeat_s)
 
     def close(self) -> None:
         """Shut down the transport (terminates process workers)."""
@@ -674,7 +710,7 @@ class _Execution:
         self.rt = rt
         self.cfg = rt.cfg
         self.transport = rt.transport
-        self.real = rt.is_real        # process workers (not inline)
+        self.real = rt.is_real        # process or socket workers (not inline)
         self.loop = EventLoop()
         self.qn = qn
         self.k = k
@@ -831,9 +867,8 @@ class _Execution:
             self.rec.record("search", 0.0, makespan, span_id=root_sid,
                             transport=self.cfg.transport, queries=self.qn,
                             k=self.k)
-            # Fleet telemetry: pull remote registries (pipe-worker deltas
-            # were absorbed per response; the call is kept for transports
-            # that pull) so the
+            # Fleet telemetry: pull remote registries (socket hosts answer
+            # STATS; pipe-worker deltas were absorbed per response) so the
             # exported record carries the merged, source-labelled view, and
             # feed the rolling SLO monitors with this run.
             fleet_metrics = None

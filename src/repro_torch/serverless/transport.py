@@ -3,8 +3,8 @@
 The port of the JAX package's ``repro.serverless.transport`` (copied as is,
 but for one guard: a process pool whose workers hold CUDA devices must be
 spawned, since a forked child of a process that has initialised CUDA cannot
-use the card). The reference's third transport, over TCP sockets, is not
-ported yet.
+use the card). The third transport, over TCP sockets, is
+``serverless.socket_transport``.
 
 The choreography in ``runtime.py`` decides *what* to invoke (the Alg. 2
 tree, payload chunks, QP fan-out); a :class:`Transport` decides *where and
@@ -55,9 +55,10 @@ from repro_torch.serverless import workers as wk
 __all__ = ["TransportError", "InvokeInfo", "Transport", "LocalTransport",
            "ProcessTransport", "TRANSPORTS"]
 
-# Backend registry. The reference's "socket" transport is not ported yet:
-# RuntimeConfig raises NotImplementedError for it.
-TRANSPORTS = ("local", "process")
+# Backend registry: "socket" is implemented by
+# serverless.socket_transport.SocketTransport (imported lazily by the
+# runtime so the TCP machinery never loads for in-process runs).
+TRANSPORTS = ("local", "process", "socket")
 
 
 class TransportError(RuntimeError):
@@ -84,7 +85,7 @@ class InvokeInfo:
     wall_submit: float
     wall_sent: float
     wall_done: float
-    host: str = ""       # "host:port" that served it (socket transport only)
+    host: str = ""       # "host:port" that served it (SocketTransport only)
     # Worker-side sub-spans for distributed tracing: the ``info["obs"]``
     # dict the worker shipped back ({"run", "parent", "spans": [[name, t0,
     # t1], ...]} with offsets relative to handler entry), or None when the
@@ -110,7 +111,7 @@ class Transport:
         """Pull remote registries into the local one (fleet telemetry).
 
         Backends whose workers cannot push telemetry on their responses
-        override this (the reference's socket transport pulls STATS); LocalTransport has no
+        override this (SocketTransport's STATS pull); LocalTransport has no
         remote processes and ProcessTransport's pipe workers echo registry
         deltas on every response instead, so the default is a no-op.
         """

@@ -11,9 +11,12 @@ transports:
   :func:`worker_main` in long-lived ``multiprocessing`` processes — one
   process per QueryProcessor partition (the ``squash-processor-<pid>``
   function) and a small pool for the shared allocator function — and every
-  request/response crosses the process boundary codec-encoded. Its
-  container loop is :class:`RequestServer`, which the reference's socket
-  transport shares (not ported yet).
+  request/response crosses the process boundary codec-encoded;
+* :class:`~repro_torch.serverless.socket_transport.SocketTransport` serves the
+  same loop over TCP connections to ``repro_torch.serverless.host`` processes
+  (possibly on other machines). Both long-lived substrates share
+  :class:`RequestServer`, so container economics (warm starts, fetch
+  timing, derived-state retention) are reported identically.
 
 A QP worker holds its partition's slice on ``WorkerInit.device`` (the card
 unless the runtime runs on the CPU) and opens its own CUDA context there; a
@@ -267,9 +270,9 @@ def configure_torch(init: WorkerInit) -> None:
 class RequestServer:
     """One live container's request loop body, transport-neutral.
 
-    Run by the pipe-served :func:`worker_main` (ProcessTransport); the
-    reference's TCP-served hosts share it, so both long-lived substrates
-    report identical container economics.
+    Shared by the pipe-served :func:`worker_main` (ProcessTransport) and the
+    TCP-served ``repro_torch.serverless.host`` connections (SocketTransport), so
+    both long-lived substrates report identical container economics.
     :meth:`handle` returns ``(ok, data, info)`` — ``data`` is the encoded
     response on success or a formatted traceback string — where ``info``
     carries ``os_pid``, ``served_before`` (warm-start evidence), ``fetch_s``

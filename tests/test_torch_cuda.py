@@ -15,12 +15,14 @@ order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
 cumulative sums taken in another order than the plain version's einsums.
 """
 
+import socket
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import dataplane  # noqa: E402
+from repro_torch.core import dataplane, distributed  # noqa: E402
 from repro_torch.core.pipeline import SquashConfig, SquashIndex  # noqa: E402
 from repro_torch.core import segments  # noqa: E402
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ops, ref, ssd  # noqa: E402
@@ -245,6 +247,72 @@ def test_serverless_runtime_on_card_equals_cpu(cuda, max_bits):
     table = m1 <= dataplane.ADC_TABLE_MAX_M1
     assert n_qp > 0 and counts["hamming_stacked"] == n_qp
     assert counts["adc_batch" if table else "adc_direct"] == n_qp
+
+
+def _small_index(seed, max_bits, parts):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 5, size=(8, 32))
+    vecs = centers[rng.integers(0, 8, 4000)] + rng.normal(size=(4000, 32))
+    attrs = rng.integers(0, 4, size=(4000, 2)).astype(np.float64)
+    index = SquashIndex.build(vecs, attrs, SquashConfig(
+        num_partitions=parts, kmeans_iters=3, lloyd_iters=4,
+        max_bits_per_dim=max_bits))
+    return index, vecs[:20] + rng.normal(scale=0.1, size=(20, 32))
+
+
+def test_socket_fleet_on_card_equals_local(cuda):
+    """Two QP links on the card behind auto-spawned loopback hosts: f64 ids
+    and stats equal the local runtime's on the card, every QP node names
+    its host, and the warm batch fetches nothing."""
+    index, queries = _small_index(7, 8, 2)
+    kw = dict(branching=2, max_level=1, qa_workers=1)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        local = ServerlessRuntime(index, RuntimeConfig(**kw)).search(
+            queries, [], k=10)
+        rt = ServerlessRuntime(index, RuntimeConfig(transport="socket", **kw))
+        try:
+            cold = rt.search(queries, [], k=10)
+            warm = rt.search(queries, [], k=10)
+        finally:
+            rt.close()
+    finally:
+        torch.set_default_dtype(prev)
+    for res in (cold, warm):
+        np.testing.assert_array_equal(res.ids, local.ids)
+        assert res.stats == local.stats
+        assert all(n.worker_host for n in res.trace.nodes if n.kind == "qp")
+    assert warm.trace.dre.s3_gets == 0
+
+
+def test_mesh_one_by_one_nccl_equals_torch_backend(cuda):
+    """``distributed_search`` on a 1 × 1 NCCL mesh: f64 ids and dists equal
+    the torch backend's, through kernels 1 and 2b (M+1 = 257)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    index, queries = _small_index(8, 8, 3)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        ops.reset_launch_counts()
+        ids, dists = distributed.distributed_search(index, queries, [], 10,
+                                                    mesh=mesh)
+        counts = ops.launch_counts()
+        ids_t, d_t, _ = index.search(queries, [], k=10, backend="torch")
+    finally:
+        torch.set_default_dtype(prev)
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(ids, ids_t)
+    np.testing.assert_array_equal(dists, d_t)
+    assert counts["hamming_stacked"] == 1 and counts["adc_direct"] == 1
 
 
 @pytest.mark.parametrize("seg_bits,bits,n", [

@@ -9,8 +9,9 @@
   backend, the serverless runtime and the service's serverless route, the
   LM ``Engine`` and ``python -m repro_torch.launch.serve`` raise (naming
   ``device="cpu"``) instead of running on the CPU, a QP worker bound to the
-  card raises instead of moving to the CPU, a process pool of CUDA workers
-  refuses ``fork``, and the kernel wrappers refuse CPU tensors.
+  card raises instead of moving to the CPU, a process pool or socket fleet
+  of CUDA workers refuses ``fork``, and the kernel wrappers refuse CPU
+  tensors.
 """
 
 import ast
@@ -33,6 +34,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import Engine, ServiceConfig, VectorSearchService  # noqa: E402
 from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
 from repro_torch.serverless import transport as tp  # noqa: E402
+from repro_torch.serverless.socket_transport import SocketTransport  # noqa: E402
 from repro_torch.serverless import workers as wk  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,7 +79,7 @@ def test_port_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 46      # every module of all slices
+    assert int(out.stdout.strip()) >= 52      # every module of all slices
 
 
 # The modules of the live index and the serverless runtime, at the
@@ -91,12 +93,28 @@ SLICE5_MODULES = [
     "serverless/runtime.py"]
 
 
-@pytest.mark.parametrize("rel", SLICE5_MODULES)
-def test_slice5_module_stands_beside_its_reference(rel):
+# The modules of the socket transport, the mesh path, the obs command-line
+# views and the HNSW baseline, at the reference's paths.
+SLICE6_MODULES = [
+    "serverless/socket_transport.py", "serverless/host.py",
+    "core/distributed.py", "core/hnsw.py", "obs/timeline.py", "obs/top.py"]
+
+
+def _stands_beside_its_reference(rel):
     assert os.path.isfile(os.path.join(PORT, rel))
     assert os.path.isfile(os.path.join(REPO, "src", "repro", rel))
     roots = set(_imported_roots(os.path.join(PORT, rel)))
     assert "jax" not in roots and "repro" not in roots, roots
+
+
+@pytest.mark.parametrize("rel", SLICE5_MODULES)
+def test_slice5_module_stands_beside_its_reference(rel):
+    _stands_beside_its_reference(rel)
+
+
+@pytest.mark.parametrize("rel", SLICE6_MODULES)
+def test_slice6_module_stands_beside_its_reference(rel):
+    _stands_beside_its_reference(rel)
 
 
 @pytest.mark.parametrize("path", list(_port_files()),
@@ -146,11 +164,11 @@ def test_serverless_runtime_defaults_to_card_and_raises_without_cuda(
         ServerlessRuntime(index)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServerlessRuntime(index, RuntimeConfig(transport="process"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerlessRuntime(index, RuntimeConfig(transport="socket"))
     rt = ServerlessRuntime(index, RuntimeConfig(device="cpu"))
     assert rt.device == torch.device("cpu")
     assert rt.search(np.zeros((2, 16)), [], k=3).ids.shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig(transport="socket")
 
 
 def test_service_serverless_route_raises_without_cuda(monkeypatch):
@@ -174,6 +192,8 @@ def test_cuda_workers_refuse_fork_and_never_fall_back(monkeypatch):
                          bundle=wk.build_qp_bundle(index, 0, torch.float32))
     with pytest.raises(ValueError, match="fork"):
         tp.ProcessTransport({"qp:0": (init, 1)}, start_method="fork")
+    with pytest.raises(ValueError, match="fork"):
+        SocketTransport({"qp:0": (init, 1)}, start_method="fork")
     prev = torch.get_default_dtype()
     try:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -290,3 +310,45 @@ def test_kernel_build_lands_in_the_checkout():
     assert build.build_dir() == Path(REPO) / "build" / "repro_torch"
     for src in build.SOURCES.values():
         assert (build._CSRC / src).is_file()
+
+
+def test_library_builds_once_for_racing_threads(monkeypatch, tmp_path):
+    """Threads that reach an unbuilt library at once (the compute threads of
+    one socket host) run one build between them and load one library."""
+    import threading
+    import time
+
+    target = tmp_path / "libfake.so"
+    builds, loads = [], []
+
+    def fake_build_all(names):
+        builds.append(list(names))
+        time.sleep(0.05)                    # widen the race window
+        target.write_bytes(b"")
+        return {n: 0.0 for n in names}
+
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "_target", lambda name: target)
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build.ctypes, "CDLL",
+                        lambda path: loads.append(path) or object())
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        barrier = threading.Barrier(16)
+        got = []
+
+        def worker():
+            barrier.wait()
+            got.append(build.library("hamming"))
+
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(prev)
+    assert builds == [["hamming"]] and len(loads) == 1
+    assert len(got) == 16 and all(lib is got[0] for lib in got)

@@ -320,10 +320,18 @@ def test_service_serverless_route(built):
         assert svc.last_trace.cache_hits == 0
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorSearchService(port, ServiceConfig(
-            backend="serverless", device="cpu",
-            transport="socket")).query(ds.queries, preds)
+    # The socket route: a fleet of TCP hosts answers like the torch backend.
+    svc = VectorSearchService(port, ServiceConfig(
+        backend="serverless", device="cpu", transport="socket"))
+    try:
+        ids, _, stats = svc.query(ds.queries, preds)
+        np.testing.assert_array_equal(ids, ids_t)
+        assert stats == _torch_search(port, ds.queries, preds)[2]
+        assert svc.runtime().cfg.transport == "socket"
+        assert svc.last_trace.transport == "socket"
+        assert svc.last_trace.worker_hosts
+    finally:
+        svc.close()
 
 
 def test_search_under_mutation_matches_torch_and_reference(built):
