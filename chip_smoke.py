@@ -27,6 +27,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   new tokens: prefill ms, decode ms per token, tokens/s; then one prefill
   and one decode step at that shape under ``torch.profiler`` (device time
   by kernel).
+* LM families: llama3-8b, granite-20b, phi4-mini-3.8b, qwen2-vl-2b,
+  musicgen-large and deepseek-v2-lite-16b at full width and 2 layers,
+  gemma3-4b and zamba2-7b at 7 (one 5+1 local:global unit or one unit of
+  6 Mamba2 blocks + the shared attention block, and a tail of one), and
+  arctic-480b at its reduced size (one full-width layer alone holds
+  53.5 GB of f32 experts); random weights from seed 0 drawn on the CPU and
+  copied to the card. 1 request of 512 tokens (gemma3: 1,280, past its
+  1,024-token ring; qwen2-vl: after 256 random patch embeddings; musicgen:
+  4 codebook streams) prefilled on the CPU and on the card: logits and
+  every cache leaf within 5e-3 of their largest magnitude; a TF32 control
+  prefill is reported, then 8 greedy tokens through ``Engine.generate`` on
+  both (agreement reported). The widths each config cut are printed.
+  zamba2's Mamba2 blocks launch kernel 6 (112 heads, N = 64).
+* LM serve llama3: ``launch/serve.py``'s path for llama3-8b at full size
+  (32 layers, 8.03 B parameters, 32.1 GB f32 drawn on the card), 8 × 2,048
+  prompts + 32 new tokens, once with the fp KV cache (4.36 GB) and once
+  with ``kv_bits=8`` (the OSQ-packed cache, a quarter of it): prefill ms,
+  decode ms per token, tokens/s, cache bytes and the share of greedy
+  tokens the two runs agree on; then one prefill and one decode step of
+  the same model under ``torch.profiler``. Each model is freed before the
+  next phase.
 * Path A (direct Stage 4, the default formulation): the SIFT1M-shaped
   synthetic dataset (1,000,000 × 128, 4 attributes of cardinality 16, the
   §5.1 predicates at ≈8 % joint selectivity), P=10, b=4d, S=8 and
@@ -50,10 +71,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   with whole and dead pairs put in, and the same for the table kernel with
   Path B's keep, in tables built in f64 and in f32, beside its dense (B, N,
   d) form on the gathered codes; SSD intra-chunk rtol 1e-4, atol 1e-5 ·
-  max |y|: f32 sums of up to lc · N products in another order; held on the
-  strided views ``ssm.ssd_chunked`` passes and on contiguous copies, with
-  fast decay and with slow decay, where every s-tile behind a row tile
-  carries weight), with its device time (launches queued behind a spin of
+  max |y|: f32 sums of up to lc · N products in another order; held at
+  mamba2-370m's serve shape and at zamba2-7b's, on the strided views
+  ``ssm.ssd_chunked`` passes and on contiguous copies, with fast decay and
+  with slow decay, where every s-tile behind a row tile carries weight),
+  with its device time (launches queued behind a spin of
   the card, CUDA events), the plain version's time and its bound on the
   card; the bounds of the two kernels that take ``keep`` count what the
   live slots need.
@@ -100,10 +122,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   mutations must equal the torch backend throughout. Insert, delete,
   compaction and restack seconds are reported.
 
-Launch counters are set to 0 just before each path (LM serve, each search
-path, the extraction, the serverless local run, each mesh search, the live
-phase) and read just after; every kernel must have launched on the path
-that runs it.
+Launch counters are set to 0 just before each path (LM serve, each LM
+family's card prefill and generation, each search path, the extraction,
+the serverless local run, each mesh search, the live phase) and read just
+after; every kernel must have launched on the path that runs it.
 Every
 check raises on failure, so the script exits non-zero. The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's name and power limit from
@@ -1071,7 +1093,8 @@ def _split(rows):
         low = name.lower()
         if "ssd_intra" in low:
             out["ssd_intra"] += us / 1e3
-        elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas")):
+        elif any(k in low for k in ("gemm", "gemv", "cutlass", "xmma",
+                                    "cublas")):
             out["matrix_products"] += us / 1e3
         else:
             out["elementwise_and_copies"] += us / 1e3
@@ -1089,19 +1112,21 @@ def lm_profile(model, requests: int, prompt_len: int):
 
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, model.cfg.vocab_size, (requests, prompt_len))).cuda()
-    logits, caches = model.prefill(tokens)                  # warm-up
-    model.decode_step(logits[:, 0].argmax(-1)[:, None], caches)
-    result = {"phase": "lm_profile", "requests": requests,
-              "prompt_len": prompt_len}
+    buf_len = prompt_len + 1
+    logits, caches = model.prefill(tokens, buf_len=buf_len)  # warm-up
+    model.decode_step(logits[:, 0].argmax(-1)[:, None], caches, prompt_len)
+    result = {"phase": "lm_profile", "arch": model.cfg.name,
+              "requests": requests, "prompt_len": prompt_len}
     for step in ("prefill", "decode_step"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if step == "prefill":
-                logits, caches = model.prefill(tokens)
+                logits, caches = model.prefill(tokens, buf_len=buf_len)
             else:
-                model.decode_step(logits[:, 0].argmax(-1)[:, None], caches)
+                model.decode_step(logits[:, 0].argmax(-1)[:, None], caches,
+                                  prompt_len)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = _device_kernels(prof)
@@ -1141,6 +1166,210 @@ def lm_serve(requests: int, prompt_len: int, new_tokens: int):
     if counts["ssd_intra"] <= 0:
         raise AssertionError("lm_serve: ssd_intra never launched")
     return counts
+
+
+# Every LM family of the port at full width and cut depth (layers), the
+# depth the smallest that keeps the schedule: one 5+1 local:global unit and
+# a local tail for gemma3, one unit of 6 Mamba2 blocks + the shared block
+# and a Mamba2 tail for zamba2.
+LM_FAMILIES = (("llama3-8b", 2), ("granite-20b", 2), ("phi4-mini-3.8b", 2),
+               ("gemma3-4b", 7), ("qwen2-vl-2b", 2), ("musicgen-large", 2),
+               ("deepseek-v2-lite-16b", 2), ("zamba2-7b", 7))
+FAMILY_PROMPT, FAMILY_NEW_TOKENS = 512, 8
+GEMMA3_PROMPT = 1280          # > the 1,024-token ring: it wraps in prefill
+LLAMA3_SERVE = "llama3-8b"
+
+
+def _cache_leaves(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _cache_leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def _cut(full, run) -> dict:
+    """The config fields a run changed: {field: [published, run]}."""
+    a, b = dataclasses.asdict(full), dataclasses.asdict(run)
+    return {k: [a[k], b[k]] for k in a if a[k] != b[k]}
+
+
+def family_check(cfg, full_cfg, prompt_len: int, new_tokens: int):
+    """One config at ``cfg``'s size on the CPU (plain versions) and on the
+    card: prefill logits and every cache leaf within ``LM_TOL`` of their
+    largest magnitude, a TF32 control prefill (reported), then greedy
+    tokens through ``Engine.generate`` on both. Returns the card's kernel
+    6 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+
+    rng = np.random.default_rng(0)
+    shape = ((1, cfg.num_codebooks, prompt_len) if cfg.num_codebooks
+             else (1, prompt_len))
+    prompts = rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
+    embeds = (rng.normal(size=(1, cfg.vlm_num_patches, cfg.d_model))
+              .astype(np.float32) if cfg.mrope else None)
+    prefix = cfg.vlm_num_patches if cfg.mrope else 0
+    buf_len = prefix + prompt_len + new_tokens
+    t0 = time.perf_counter()
+    model_cpu = T.init_params(cfg, seed=0)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(prompts).long()
+    emb = None if embeds is None else torch.from_numpy(embeds)
+
+    def on_card():
+        return model_gpu.prefill(tokens.cuda(), buf_len=buf_len,
+                                 embeds=None if emb is None else emb.cuda())
+
+    t0 = time.perf_counter()
+    logits_c, caches_c = model_cpu.prefill(tokens, buf_len=buf_len,
+                                           embeds=emb)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits_g, caches_g = on_card()
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["ssd_intra"]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        logits_t, caches_t = on_card()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    result = {"phase": "lm_families", "arch": cfg.name,
+              "params": sum(p.numel() for p in model_cpu.parameters()),
+              "cut": _cut(full_cfg, cfg), "prompt_len": prompt_len,
+              "embeds": None if embeds is None else list(embeds.shape),
+              "buf_len": buf_len, "init_cpu_s": init_s, "to_card_s": copy_s,
+              "cpu_prefill_s": cpu_s, "card_prefill_s": gpu_s,
+              "ssd_intra_launches_per_prefill": launches,
+              "tolerance": f"max |card - cpu| <= {LM_TOL} * max |cpu|"}
+    worst, worst_t = 0.0, 0.0
+    pairs = [("logits", logits_c, logits_g, logits_t)]
+    card, control = dict(_cache_leaves(caches_g)), dict(_cache_leaves(caches_t))
+    pairs += [(f"cache.{k}", v, card[k], control[k])
+              for k, v in _cache_leaves(caches_c)]
+    errs = {}
+    ok = True
+    for name, c, g, t in pairs:
+        if c.numel() == 0:
+            continue
+        g, t = g.cpu(), t.cpu()
+        scale = float(c.abs().max()) or 1.0
+        rel = float((g - c).abs().max()) / scale
+        rel_t = float((t - c).abs().max()) / scale
+        errs[name] = {"rel_err": rel, "tf32_control_rel_err": rel_t,
+                      "max_abs": scale}
+        ok = ok and bool(torch.isfinite(g).all()) and rel <= LM_TOL
+        worst, worst_t = max(worst, rel), max(worst_t, rel_t)
+    result.update({"rel_err": errs, "worst_rel_err": worst,
+                   "worst_tf32_control_rel_err": worst_t})
+    del caches_c, caches_g, caches_t, logits_t
+
+    sc = ServeConfig(max_new_tokens=new_tokens)
+    out_c = Engine(cfg, model_cpu, sc, device="cpu").generate(
+        prompts, embeds=embeds)
+    ops.reset_launch_counts()
+    out_g = Engine(cfg, model_gpu, sc).generate(prompts, embeds=embeds)
+    launches += ops.launch_counts()["ssd_intra"]
+    result.update({"new_tokens": new_tokens, "tokens_shape": list(out_g.shape),
+                   "token_agreement": float(np.mean(out_c == out_g)),
+                   "first_divergence": _first_divergence(out_c, out_g),
+                   "ssd_intra_launches": launches})
+    emit(result)
+    del model_cpu, model_gpu
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"lm_families: {cfg.name} card and CPU prefill "
+                             f"disagree beyond {LM_TOL} of the largest "
+                             f"magnitude (worst {worst})")
+    return launches
+
+
+def lm_families():
+    """Each LM family at full width and cut depth (arctic-480b at its
+    reduced size: one full-width layer alone is 53.5 GB of f32 experts),
+    card against CPU. Returns zamba2's kernel 6 launches and its shape."""
+    from repro_torch.configs import get_config
+
+    zamba = None
+    for name, layers in LM_FAMILIES:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        prompt = GEMMA3_PROMPT if name == "gemma3-4b" else FAMILY_PROMPT
+        launches = family_check(cfg, full, prompt, FAMILY_NEW_TOKENS)
+        if name == "zamba2-7b":
+            heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+            shape = (-(-prompt // cfg.ssm_chunk), heads, cfg.ssm_chunk,
+                     cfg.ssm_state, cfg.ssm_headdim)
+            zamba = (launches, shape)
+        elif launches:
+            raise AssertionError(f"lm_families: {name} launched kernel 6")
+    full = get_config("arctic-480b")
+    family_check(full.reduced(), full, FAMILY_PROMPT, FAMILY_NEW_TOKENS)
+    if not zamba[0]:
+        raise AssertionError("lm_families: ssd_intra never launched on the "
+                             "zamba2-7b path")
+    return zamba
+
+
+def lm_serve_llama3(requests: int, prompt_len: int, new_tokens: int):
+    """``launch.serve``'s path for llama3-8b at full size (32 layers, 8.03 B
+    parameters drawn on the card), once with the fp KV cache and once with
+    the 8-bit OSQ-packed one."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as T
+
+    vocab = get_config(LLAMA3_SERVE).vocab_size
+    tokens = {}
+    for bits in (0, 8):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = launch_serve.serve(LLAMA3_SERVE, requests=requests,
+                                 prompt_len=prompt_len, new_tokens=new_tokens,
+                                 kv_bits=bits, device="cuda", seed=0)
+        total_s = time.perf_counter() - t0
+        out = tokens[bits] = rep.pop("tokens")
+        rep.update({"phase": "lm_serve_llama3", "total_s": total_s,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "tokens_shape": list(out.shape),
+                    "tokens_in_vocab": bool(((out >= 0) & (out < vocab))
+                                            .all()),
+                    "sample_continuation": out[0][:12].tolist()})
+        emit(rep)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if out.shape != (requests, new_tokens) or not rep["tokens_in_vocab"]:
+            raise AssertionError("lm_serve_llama3: malformed generated tokens")
+        if bits and not rep["cache_bytes_packed"] * 32 // bits == \
+                rep["cache_bytes_fp"]:
+            raise AssertionError("lm_serve_llama3: the packed KV cache is not "
+                                 f"{bits}/32 of the fp cache")
+    emit({"phase": "lm_serve_llama3_agreement",
+          "token_agreement_kv8_vs_fp": float(np.mean(tokens[0] == tokens[8])),
+          "first_divergence": _first_divergence(tokens[0], tokens[8])})
+    model = T.init_params(get_config(LLAMA3_SERVE), seed=0, device="cuda")
+    lm_profile(model, requests, prompt_len)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def extract_path(index):
@@ -1215,7 +1444,7 @@ def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms,
 
 
 def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
-                  ssd_shape):
+                  ssd_shapes):
     """Every kernel against its plain version; the ``kernels`` line's
     entries in the order 1, 2b, 3 (view), 2, 4 (view), 5, 6."""
     import torch
@@ -1285,7 +1514,7 @@ def check_kernels(index_a, index_b, queries, preds, launches, packed_a,
     emit({"phase": "views", "packed_hamming": "equal",
           "adc_lb_distances": "within tolerance"})
     entries.append(check_extract(index_a, packed_a, launches))
-    entries.append(check_ssd(ssd_shape, launches))
+    entries.append(check_ssd(ssd_shapes))
     return entries
 
 
@@ -1586,12 +1815,12 @@ def ssd_views(conv, da_l, x_l, n):
             da_l.transpose(1, 2), x_l.transpose(1, 2))
 
 
-def check_ssd(ssd_shape, launches):
-    """Kernel 6 at the LM serve prefill's shape against its plain version,
-    on the model's strided views and on contiguous copies, with fast decay
-    (da ~ -Exp(1), the random-init model's heads; timed) and with slow decay
-    (da ~ -Exp(1) · 1e-3, small dt as trained models run), where the
-    s-tiles far behind each l-tile carry weight."""
+def ssd_case(ssd_shape):
+    """Kernel 6 at one shape against its plain version, on the model's
+    strided views and on contiguous copies, with fast decay (da ~ -Exp(1),
+    the random-init model's heads; timed) and with slow decay (da ~ -Exp(1)
+    · 1e-3, small dt as trained models run), where the s-tiles far behind
+    each l-tile carry weight. Returns its numbers and work."""
     import torch
 
     from repro_torch.kernels import ref, ssd
@@ -1625,19 +1854,46 @@ def check_ssd(ssd_shape, launches):
         raise AssertionError("ssd_intra: the slow-decay case does not weigh "
                              "the far s-tiles")
     pairs = lc * (lc + 1) // 2
+    return {
+        "shape": {"G": g, "H": h, "lc": lc, "N": nst, "P": pd},
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": device_ms(lambda: ssd.ssd_intra(*views), 20),
+        "plain_ms": cuda_ms(lambda: ref.ssd_intra_ref(*dense), 3),
+        "nbytes": 4 * (2 * g * lc * nst + g * h * lc + 2 * g * h * lc * pd),
+        "ops": g * pairs * h * 3,
+        "tf32x3_ops": g * pairs * (2 * nst + h * 2 * pd),
+        "cases": cases,
+        "ms_contiguous": device_ms(lambda: ssd.ssd_intra(*dense), 20),
+        "call_ms": cuda_ms(lambda: ssd.ssd_intra(*views), 20)}
+
+
+def check_ssd(ssd_shapes):
+    """Kernel 6 at the LM serve prefill's shape (mamba2-370m, the entry's
+    numbers) and at zamba2-7b's (its ``zamba2_7b`` part); ``ssd_shapes``
+    maps each config to (shape, launches on its path)."""
+    (shape, serve_launches), (z_shape, z_launches) = (
+        ssd_shapes[LM_ARCH], ssd_shapes["zamba2-7b"])
+    main_case, z = ssd_case(shape), ssd_case(z_shape)
+    z_bound, z_by = bound(z["nbytes"], z["ops"], z["tf32x3_ops"])
     return kernel_entry(
         "ssd_intra", "src/repro_torch/kernels/csrc/ssd.cu",
-        "src/repro/kernels/ssd.py:54", launches["ssd_intra"],
-        max(c["max_abs_err"] for c in cases.values()),
-        device_ms(lambda: ssd.ssd_intra(*views), 20),
-        cuda_ms(lambda: ref.ssd_intra_ref(*dense), 3),
-        4 * (2 * g * lc * nst + g * h * lc + 2 * g * h * lc * pd),
-        g * pairs * h * 3, tf32x3_ops=g * pairs * (2 * nst + h * 2 * pd),
-        shape={"G": g, "H": h, "lc": lc, "N": nst, "P": pd}, cases=cases,
+        "src/repro/kernels/ssd.py:54", serve_launches + z_launches,
+        max(main_case["max_abs_err"], z["max_abs_err"]), main_case["ms"],
+        main_case["plain_ms"], main_case["nbytes"], main_case["ops"],
+        tf32x3_ops=main_case["tf32x3_ops"], shape=main_case["shape"],
+        cases=main_case["cases"],
+        launches_by_phase={"lm_serve": serve_launches,
+                           "lm_families_zamba2": z_launches},
+        zamba2_7b={"shape": z["shape"], "launches": z_launches,
+                   "max_abs_err": z["max_abs_err"], "ms": z["ms"],
+                   "plain_ms": z["plain_ms"], "bound_ms": z_bound,
+                   "bound_by": z_by, "call_ms": z["call_ms"],
+                   "ms_contiguous": z["ms_contiguous"], "bytes": z["nbytes"],
+                   "cases": z["cases"]},
         tolerance=f"rtol={SSD_RTOL}, atol={SSD_ATOL_SCALE} * max |y|",
         timed="fast decay, on the strided views ssm.ssd_chunked passes",
-        ms_contiguous=device_ms(lambda: ssd.ssd_intra(*dense), 20),
-        call_ms=cuda_ms(lambda: ssd.ssd_intra(*views), 20),
+        ms_contiguous=main_case["ms_contiguous"],
+        call_ms=main_case["call_ms"],
         redesigned_in=13,
         products="mma.sync m16n8k8 TF32 with 3xTF32 compensation",
         ops_counted="causal pairs: the products (scores 2N once per g, 2P "
@@ -1689,6 +1945,8 @@ def main(argv=None) -> int:
     lm_launches = lm_serve(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
     lm_profile(lm_model, LM_REQUESTS, LM_PROMPT_LEN)
     del lm_model
+    zamba_launches, zamba_shape = lm_families()
+    lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
 
     cfg_a = SquashConfig(num_partitions=10, max_bits_per_dim=8,
                          kmeans_iters=4, lloyd_iters=6)
@@ -1731,7 +1989,7 @@ def main(argv=None) -> int:
                 "adc_direct": launches_a["adc_direct"],
                 "adc_batch": launches_b["adc_batch"],
                 "extract_codes": extract_launches["extract_codes"],
-                "ssd_intra": lm_launches["ssd_intra"]}
+                "ssd_intra": lm_launches["ssd_intra"] + zamba_launches}
     missing = [name for name, n in per_path.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -1744,8 +2002,10 @@ def main(argv=None) -> int:
     ssd_shape = (LM_REQUESTS * LM_PROMPT_LEN // lm_cfg.ssm_chunk, heads,
                  lm_cfg.ssm_chunk, lm_cfg.ssm_state, lm_cfg.ssm_headdim)
     queries = ds.queries.astype("float64")
-    entries = check_kernels(index_a, index_b, queries, preds,
-                            {**launches, **per_path}, packed_a, ssd_shape)
+    entries = check_kernels(
+        index_a, index_b, queries, preds, {**launches, **per_path}, packed_a,
+        {LM_ARCH: (ssd_shape, lm_launches["ssd_intra"]),
+         "zamba2-7b": (zamba_shape, zamba_launches)})
     # The new phases come after the kernels phase, which must see the
     # indexes unmutated; their launches join the kernels line below.
     # The socket and mesh phases come before live, which mutates Path B.

@@ -1,5 +1,7 @@
 """Architecture configurations of the port (copies of ``repro.configs``)."""
 
-from repro_torch.configs.base import ArchConfig, get_config, list_configs, register
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
+                                      get_config, list_configs, register)
 
-__all__ = ["ArchConfig", "get_config", "list_configs", "register"]
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "get_config",
+           "list_configs", "register"]

@@ -1,11 +1,8 @@
-"""Architecture configuration schema (a copy of ``repro.configs.base``).
+"""Architecture + run configuration schema (a copy of ``repro.configs.base``).
 
 One :class:`ArchConfig` per architecture lives in
 ``repro_torch/configs/<id>.py`` with the exact public-literature spec; tests
 use :func:`ArchConfig.reduced` (≤2 layers, d_model ≤ 512, ≤4 experts).
-
-Only ``mamba2-370m`` is ported so far; ``ROADMAP.md`` lists the other
-configurations of the JAX package still to port.
 """
 
 from __future__ import annotations
@@ -13,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ArchConfig", "register", "get_config", "list_configs"]
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "register", "get_config",
+           "list_configs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +106,21 @@ class ArchConfig:
         return dataclasses.replace(self, **small)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 _REGISTRY = {}
 
 
@@ -120,8 +133,8 @@ def get_config(name: str) -> ArchConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"no ported config {name!r}: the port has "
-                       f"{sorted(_REGISTRY)} (ROADMAP.md lists the rest)")
+        raise KeyError(f"no config {name!r}: the registry has "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -133,4 +146,7 @@ def list_configs():
 
 def _load_all():
     # Importing each module runs its register() call.
-    from repro_torch.configs import mamba2_370m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        arctic_480b, deepseek_v2_lite_16b, gemma3_4b, granite_20b, llama3_8b,
+        mamba2_370m, musicgen_large, phi4_mini_3_8b, qwen2_vl_2b, zamba2_7b,
+    )

@@ -1,12 +1,15 @@
 """Serving launcher: batched generation through the port's engine.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
-      --requests 8 --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --requests 8 --prompt-len 2048 --new-tokens 32 [--kv-bits 8]
 
-Builds the model with random weights from a seeded generator, runs the
-batched requests through prefill + greedy (or sampled) decode on the CUDA
-card — or on the CPU with ``--device cpu`` — and reports prefill time,
-decode time per token and tokens/s.
+Any registered config (``--reduced`` for its smoke size). Builds the model
+with random weights drawn from a seeded generator on the serving device,
+runs the batched requests through prefill + greedy (or sampled) decode on
+the CUDA card — or on the CPU with ``--device cpu`` — optionally with the
+OSQ-packed KV cache, and reports prefill time, decode time per token,
+tokens/s and the bytes of the KV cache (fp, and packed). Audio configs get
+(B, K, S) prompts; the VLM gets random patch embeddings.
 """
 
 from __future__ import annotations
@@ -36,30 +39,42 @@ def serve(arch: str, *, requests: int = 8, prompt_len: int = 32,
     """Generate for ``requests`` random prompts; returns the report.
 
     The weights and the prompts come from ``seed``. Times are host-clock
-    seconds around work that ends with the tokens on the host.
+    seconds around work that ends with the tokens on the host; ``init_s``
+    is the weight draw.
     """
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    t0 = time.perf_counter()
     model = T.init_params(cfg, seed=seed, device=dev)
+    _synchronize(dev)
+    init_s = time.perf_counter() - t0
     eng = Engine(cfg, model, ServeConfig(
         max_new_tokens=new_tokens, kv_bits=kv_bits, temperature=temperature,
         seed=seed), device=dev)
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (requests, prompt_len), dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    shape = ((requests, cfg.num_codebooks, prompt_len) if cfg.num_codebooks
+             else (requests, prompt_len))
+    prompts = rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
+    embeds = (rng.normal(size=(requests, cfg.vlm_num_patches,
+                               cfg.d_model)).astype(np.float32)
+              if cfg.mrope else None)
     _synchronize(dev)
     t0 = time.perf_counter()
-    out = eng.generate(prompts)
+    out = eng.generate(prompts, embeds=embeds)
     wall = time.perf_counter() - t0
     timing = eng.last_timing
     return {
         "arch": cfg.name, "device": str(dev), "requests": requests,
         "prompt_len": prompt_len, "new_tokens": new_tokens,
+        "kv_bits": kv_bits, "init_s": init_s,
         "prefill_ms": timing["prefill_s"] * 1e3,
         "decode_ms_per_token": (timing["decode_s"] * 1e3
                                 / max(timing["decode_steps"], 1)),
         "wall_s": wall, "tokens_per_s": out.size / wall,
+        "cache_bytes_fp": eng.last_cache_bytes["fp"],
+        "cache_bytes_packed": eng.last_cache_bytes["packed"],
         "tokens": out,
     }
 
@@ -86,8 +101,13 @@ def main(argv=None):
           f"requests × {args.prompt_len} prompt + {args.new_tokens} new tokens "
           f"in {rep['wall_s']:.2f}s (prefill {rep['prefill_ms']:.1f} ms, "
           f"decode {rep['decode_ms_per_token']:.2f} ms/token, "
-          f"{rep['tokens_per_s']:.0f} tok/s)")
-    print(f"[serve] sample continuation: {out[0][:12].tolist()}")
+          f"{rep['tokens_per_s']:.0f} tok/s, kv_bits="
+          f"{args.kv_bits or 'fp'})")
+    packed = rep["cache_bytes_packed"]
+    print(f"[serve] KV cache: {rep['cache_bytes_fp']} bytes fp"
+          + ("" if packed is None else f", {packed} bytes packed"))
+    print(f"[serve] sample continuation: "
+          f"{out.reshape(out.shape[0], -1)[0][:12].tolist()}")
     return 0
 
 

@@ -1,2 +1,2 @@
-"""Language-model substrate of the port: layers, the Mamba2 mixer and the
-decoder assembly (only the attention-free ``ssm`` family so far)."""
+"""Language-model substrate of the port: layers, attention (GQA/MQA, MLA),
+the MoE FFN, the Mamba2 mixer and the decoder assembly of every family."""

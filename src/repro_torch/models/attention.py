@@ -1,0 +1,297 @@
+"""Attention blocks: GQA/MQA (+ sliding window, M-RoPE) and MLA (DeepSeek-V2).
+
+The port of ``repro.models.attention``. Two modes per variant:
+  * ``prefill`` — full-sequence causal, returns the populated KV cache.
+  * ``decode``  — one new token against a cache (ring buffer for windowed
+    layers, full buffer otherwise), written into the caller's cache in
+    place (the reference returns an updated copy).
+
+Prefill attention is **query-chunked** (a loop over blocks of ``Q_CHUNK``
+queries) so the (S × S) score matrix never materializes — peak scores are
+(chunk × S): llama3-8b's prefill at 8 × 2,048 tokens would otherwise hold
+(8, 32, 2,048, 2,048) f32 = 4.3 GB per layer. Decode for MLA uses the
+*absorbed* form (q projected into the latent space), so per-step work is
+O(S · kv_lora) and per-head keys never materialize.
+
+Plain matrix products and ``torch.softmax`` in f32, with the reference's
+``-1e9`` fill for masked scores (not ``-inf``: a row with no valid key,
+a pad query, stays a uniform average as in the reference).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.hints import ambient_mesh_sizes, hint
+
+__all__ = ["GQA", "MLA", "init_gqa_cache", "init_mla_cache"]
+
+_NEG = -1e9
+Q_CHUNK = 512
+
+
+def _heads_need_pinning(num_heads: int, num_kv: int) -> bool:
+    """The reference pins the kv-group axis to a 'model' mesh axis that does
+    not divide the heads; the port has no such mesh (``hints``)."""
+    m = ambient_mesh_sizes().get("model", 0)
+    return bool(m) and num_heads % m != 0 and 2 * num_kv >= m
+
+
+# ---------------------------------------------------------------- core attend
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+            q_chunk: int = 0) -> torch.Tensor:
+    """Chunked masked attention.
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); q_pos: (B, Sq); k_pos: (B, Sk).
+    Causal + optional sliding window; k_pos < 0 marks invalid slots and
+    q_pos < 0 pad rows. Returns (B, Sq, H, vd).
+    """
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    vd = v.shape[-1]
+    g = h // kv
+    scale = hd ** -0.5
+    qc = min(q_chunk or Q_CHUNK, sq)
+    pad = (-sq) % qc
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+    nq = q.shape[1] // qc
+    qs = q.reshape(b, nq, qc, kv, g, hd)
+    qps = q_pos.reshape(b, nq, qc)
+    if sq > 1 and _heads_need_pinning(h, kv):
+        qs = hint(qs, "data", None, None, "model", None, None)
+        k = hint(k, "data", None, "model", None)
+        v = hint(v, "data", None, "model", None)
+    kp = k_pos[:, None, :]
+    outs = []
+    for i in range(nq):
+        qp = qps[:, i, :, None]                               # (B, qc, 1)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qs[:, i], k) * scale
+        mask = (kp <= qp) & (kp >= 0)
+        if window:
+            mask &= kp > (qp - window)
+        mask &= qp >= 0
+        s = torch.where(mask[:, None, None, :, :], s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v))
+    out = torch.stack(outs, dim=1).reshape(b, nq * qc, h, vd)
+    return out[:, :sq].to(v.dtype)
+
+
+def _decode_positions(b: int, pos: int, device) -> torch.Tensor:
+    return torch.full((b, 1), pos, dtype=torch.int32, device=device)
+
+
+def _update_slot(buf: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``buf[:, slot] = new[:, 0]`` with ``dynamic_update_slice``'s clamp of
+    the start index into the buffer."""
+    buf[:, min(max(slot, 0), buf.shape[1] - 1)] = new[:, 0].to(buf.dtype)
+
+
+# ----------------------------------------------------------------------- GQA
+
+def init_gqa_cache(cfg: ArchConfig, batch: int, buf_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": torch.zeros((batch, buf_len, kv, hd), device=device),
+            "v": torch.zeros((batch, buf_len, kv, hd), device=device)}
+
+
+class GQA(nn.Module):
+    """Grouped-query attention (MQA at one kv head), RoPE or M-RoPE."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        hd = cfg.resolved_head_dim
+        self.wq = L.Linear(d, h * hd)
+        self.wk = L.Linear(d, kv * hd)
+        self.wv = L.Linear(d, kv * hd)
+        self.wo = L.Linear(h * hd, d)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (self.wq, self.wk, self.wv, self.wo):
+            lin.reset_parameters(generator)
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor,
+             positions_3d: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q = self.wq(x).reshape(b, s, h, hd)
+        k = self.wk(x).reshape(b, s, kv, hd)
+        v = self.wv(x).reshape(b, s, kv, hd)
+        if cfg.mrope and positions_3d is not None:
+            q = L.apply_mrope(q, positions_3d, cfg.rope_theta)
+            k = L.apply_mrope(k, positions_3d, cfg.rope_theta)
+        else:
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, buf_len: int,
+                window: int = 0, positions_3d: Optional[torch.Tensor] = None):
+        """Full-seq attention + cache population. Returns (y, cache)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions, positions_3d)
+        out = _attend(q, k, v, positions, positions, window)
+        y = self.wo(out.reshape(b, s, -1))
+        if buf_len >= s:
+            ck = F.pad(k, (0, 0, 0, 0, 0, buf_len - s))
+            cv = F.pad(v, (0, 0, 0, 0, 0, buf_len - s))
+        else:  # ring buffer keeps the trailing ``buf_len`` positions
+            roll = s % buf_len
+            ck = torch.roll(k[:, s - buf_len:], roll, dims=1)
+            cv = torch.roll(v[:, s - buf_len:], roll, dims=1)
+        return y, {"k": ck.to(x.dtype), "v": cv.to(x.dtype)}
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: int, window: int = 0) -> torch.Tensor:
+        """One-token step at absolute position ``pos``; writes the token's
+        k/v into ``cache`` in place.
+
+        Full buffers place the token at slot ``pos``; windowed (ring)
+        buffers at ``pos % buf_len`` with slot → position recovered
+        arithmetically. Rotates with 1-D RoPE, M-RoPE configs too (text
+        positions carry t = h = w).
+        """
+        cfg = self.cfg
+        b = x.shape[0]
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        buf = cache["k"].shape[1]
+        posv = _decode_positions(b, pos, x.device)
+        q = L.apply_rope(self.wq(x).reshape(b, 1, h, hd), posv, cfg.rope_theta)
+        k = L.apply_rope(self.wk(x).reshape(b, 1, kv, hd), posv,
+                         cfg.rope_theta)
+        v = self.wv(x).reshape(b, 1, kv, hd)
+        slot = pos % buf if window else pos
+        _update_slot(cache["k"], slot, k)
+        _update_slot(cache["v"], slot, v)
+        idx = torch.arange(buf, device=x.device)
+        if window:
+            # slot i holds absolute position pos − ((pos − i) mod buf).
+            k_pos = pos - torch.remainder(pos - idx, buf)
+        else:
+            k_pos = torch.where(idx <= pos, idx, -1)
+        k_pos = k_pos[None, :].expand(b, buf).to(torch.int32)
+        out = _attend(q, cache["k"], cache["v"], posv, k_pos, window,
+                      q_chunk=1)
+        return self.wo(out.reshape(b, 1, -1))
+
+
+# ----------------------------------------------------------------------- MLA
+
+def init_mla_cache(cfg: ArchConfig, batch: int, buf_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "latent": torch.zeros((batch, buf_len, cfg.kv_lora_rank),
+                              device=device),
+        "k_rope": torch.zeros((batch, buf_len, cfg.qk_rope_dim),
+                              device=device),
+    }
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention: keys and values through a ``kv_lora``
+    latent, with one RoPE key part shared by the heads."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.num_heads
+        nope, rope, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                                cfg.v_head_dim, cfg.kv_lora_rank)
+        self.wq = L.Linear(d, h * (nope + rope))
+        self.w_dkv = L.Linear(d, lora + rope)    # latent + shared k_rope
+        self.w_uk = L.Linear(lora, h * nope)
+        self.w_uv = L.Linear(lora, h * vd)
+        self.wo = L.Linear(h * vd, d)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (self.wq, self.w_dkv, self.w_uk, self.w_uv, self.wo):
+            lin.reset_parameters(generator)
+
+    def _qkv_full(self, x: torch.Tensor, positions: torch.Tensor):
+        """Materialized (prefill) form: per-head k, v built from the latent."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = cfg.num_heads
+        nope, rope, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                                cfg.v_head_dim, cfg.kv_lora_rank)
+        q = self.wq(x).reshape(b, s, h, nope + rope)
+        q_nope = q[..., :nope]
+        q_rope = L.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+        dkv = self.w_dkv(x)                                   # (B,S,lora+rope)
+        latent = dkv[..., :lora]
+        k_rope = L.apply_rope(dkv[..., lora:][:, :, None, :], positions,
+                              cfg.rope_theta)
+        k_nope = self.w_uk(latent).reshape(b, s, h, nope)
+        v = self.w_uv(latent).reshape(b, s, h, vd)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
+        return q_full, k_full, v, latent, k_rope[:, :, 0, :]
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, buf_len: int,
+                window: int = 0):
+        b, s, _ = x.shape
+        q, k, v, latent, k_rope = self._qkv_full(x, positions)
+        out = _attend(q, k, v, positions, positions, window)
+        y = self.wo(out.reshape(b, s, -1))
+        pad = buf_len - s
+        return y, {"latent": F.pad(latent, (0, 0, 0, pad)).to(x.dtype),
+                   "k_rope": F.pad(k_rope, (0, 0, 0, pad)).to(x.dtype)}
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: int, window: int = 0) -> torch.Tensor:
+        """Absorbed-MLA decode: scores and context live in the kv_lora
+        latent space; writes the token's latent and k_rope into ``cache``.
+
+        score_h(t) = q_nope_h · (W_uk latent_t)  +  q_rope_h · k_rope_t
+                   = (W_uk^T q_nope_h) · latent_t + q_rope_h · k_rope_t
+        ctx_h      = Σ_t p_t latent_t  →  out_h = W_uv ctx_h
+        """
+        cfg = self.cfg
+        b = x.shape[0]
+        h = cfg.num_heads
+        nope, rope, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                                cfg.v_head_dim, cfg.kv_lora_rank)
+        buf = cache["latent"].shape[1]
+        posv = _decode_positions(b, pos, x.device)
+        q = self.wq(x).reshape(b, 1, h, nope + rope)
+        q_nope = q[..., :nope]
+        q_rope = L.apply_rope(q[..., nope:], posv, cfg.rope_theta)
+        dkv = self.w_dkv(x)
+        k_rope_new = L.apply_rope(dkv[..., lora:][:, :, None, :], posv,
+                                  cfg.rope_theta)
+        _update_slot(cache["latent"], pos, dkv[..., :lora])
+        _update_slot(cache["k_rope"], pos, k_rope_new[:, :, 0, :])
+        c_lat = cache["latent"].to(torch.float32)
+        c_kr = cache["k_rope"].to(torch.float32)
+        # Absorb W_uk into the query.
+        w_uk = self.w_uk.w.reshape(lora, h, nope).to(torch.float32)
+        q_lat = torch.einsum("bqhn,lhn->bhql", q_nope.to(torch.float32),
+                             w_uk)                            # (B,h,1,lora)
+        s_lat = torch.einsum("bhql,bsl->bhqs", q_lat, c_lat)
+        s_rope = torch.einsum("bqhr,bsr->bhqs", q_rope.to(torch.float32),
+                              c_kr)
+        s = (s_lat + s_rope) * (nope + rope) ** -0.5
+        idx = torch.arange(buf, device=x.device)
+        mask = idx <= pos
+        if window:
+            mask &= idx > (pos - window)
+        s = torch.where(mask[None, None, None, :], s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhqs,bsl->bhql", p, c_lat)
+        w_uv = self.w_uv.w.reshape(lora, h, vd).to(torch.float32)
+        out = torch.einsum("bhql,lhv->bqhv", ctx, w_uv)
+        return self.wo(out.reshape(b, 1, h * vd).to(x.dtype))

@@ -146,8 +146,8 @@ class Mamba2Mixer(nn.Module):
         for lin in (self.in_z, self.in_xbc, self.in_dt):
             lin.reset_parameters(generator)
         with torch.no_grad():
-            self.conv_w.copy_(torch.randn(self.conv_w.shape, generator=generator)
-                              * self.cfg.ssm_conv ** -0.5)
+            self.conv_w.normal_(0.0, self.cfg.ssm_conv ** -0.5,
+                                generator=generator)
             self.conv_b.zero_()
             self.A_log.copy_(torch.log(torch.linspace(
                 1.0, 16.0, h, dtype=torch.float64)))

@@ -1,146 +1,474 @@
-"""Decoder assembly of the port: the ``uniform`` schedule of Mamba2 blocks.
+"""Decoder assembly for every architecture family (the port of
+``repro.models.transformer``).
 
-The port of ``repro.models.transformer`` for the attention-free ``ssm``
-family (``mamba2-370m``): an embedding, ``num_layers`` pre-norm Mamba2
-blocks in an ``nn.ModuleList`` (the reference stacks them on a leading axis
-and runs ``lax.scan``; here a loop over the list), a final RMSNorm and the
-LM head. Entry points: :meth:`DecoderLM.prefill` (populate caches, last-token
-logits) and :meth:`DecoderLM.decode_step` (one token). Attention, MoE and
-hybrid blocks, the other layer schedules and ``forward_train`` are not
-ported yet (``ROADMAP.md``): their configs raise ``NotImplementedError``.
+One code path builds all ten configs. The reference stacks layers on a
+leading axis and runs ``lax.scan``; here each stack is an
+``nn.ModuleList`` and a loop. Heterogeneous schedules repeat *units*:
 
-Caches keep the reference's layout: ``{"blocks": {"conv": (L, B, k-1, C),
-"state": (L, B, H, P, N)}}``, stacked over layers.
+  dense / moe / ssm / vlm / audio — one uniform stack of ``num_layers``.
+  gemma3 (local:global R:1)       — units of (R local + 1 global) and a
+                                    tail of the remaining locals. Local
+                                    layers keep ring caches of
+                                    ``min(sliding_window, buf_len)``; globals
+                                    keep full buffers.
+  zamba2 (hybrid)                 — units of (E Mamba2 blocks + the ONE
+                                    shared attention+MLP block: a single
+                                    module applied at every unit, its
+                                    weights once in ``state_dict()``) and a
+                                    Mamba2 tail.
+
+Entry points: :meth:`DecoderLM.prefill` (populate caches, last-token
+logits) and :meth:`DecoderLM.decode_step` (one token, caches updated in
+place). ``forward_train`` comes with training (``ROADMAP.md``).
+
+Caches keep the reference's layout and key names, stacked over layers:
+``{"blocks": ...}`` for the uniform stack, ``{"units": {"local",
+"global"}, "tail"}`` for local:global and ``{"units": {"mamba", "attn"},
+"tail"}`` for the hybrid, with leaves ``k``/``v`` (B, buf, KV, hd),
+``latent``/``k_rope`` (B, buf, r) and ``conv``/``state`` behind the
+stacking axes. ``serve.kv_quant`` picks leaves by these names.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-__all__ = ["Block", "DecoderLM", "init_params", "from_jax_params"]
+__all__ = ["Block", "DecoderLM", "init_params", "from_jax_params",
+           "make_positions", "vlm_positions_3d"]
+
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.family != "ssm" or cfg.d_ff or cfg.hybrid_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs only attention-free Mamba2 stacks "
-            "without an MLP (family 'ssm', d_ff 0, the uniform schedule); "
-            "ROADMAP.md lists the attention, MoE and hybrid families still "
-            "to port")
+# ======================================================================
+# single blocks
+# ======================================================================
+
+def _block_kind(cfg: ArchConfig) -> str:
+    if cfg.family == "ssm":
+        return "mamba"
+    if cfg.mla:
+        return "mla"
+    return "gqa"
 
 
 class Block(nn.Module):
-    """Pre-norm residual Mamba2 block (the reference's mamba ``init_block``)."""
+    """Pre-norm residual block of one kind: ``mamba`` (a Mamba2 mixer, and
+    an MLP when ``d_ff``), ``gqa`` or ``mla`` (attention, then an MLP or
+    the MoE FFN)."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, kind: Optional[str] = None):
         super().__init__()
+        self.cfg = cfg
+        self.kind = kind = kind or _block_kind(cfg)
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps)
-        self.mixer = S.Mamba2Mixer(cfg)
+        if kind == "mamba":
+            self.mixer = S.Mamba2Mixer(cfg)
+            if cfg.d_ff:
+                self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps)
+                self.ffn = L.MLP(cfg.d_model, cfg.d_ff)
+            return
+        self.attn = A.MLA(cfg) if kind == "mla" else A.GQA(cfg)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps)
+        self.ffn = (M.MoE(cfg) if cfg.num_experts
+                    else L.MLP(cfg.d_model, cfg.d_ff))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.norm1.reset_parameters(generator)
-        self.mixer.reset_parameters(generator)
+        _reset_children(self, generator)
 
-    def block_prefill(self, x: torch.Tensor):
-        """x: (B, S, d) → (x + mixer(norm(x)), {"conv", "state"} cache)."""
-        mixed, cache = self.mixer.prefill(self.norm1(x))
-        return x + mixed, cache
+    def _ffn(self, x: torch.Tensor):
+        """x + ffn(norm2(x)) and the MoE aux loss (0 without experts)."""
+        h2 = self.norm2(x)
+        if isinstance(self.ffn, M.MoE):
+            y, aux = self.ffn(h2)
+            return x + y, aux
+        return x + self.ffn(h2), torch.zeros((), device=x.device)
 
-    def block_decode(self, x: torch.Tensor, conv: torch.Tensor,
-                     state: torch.Tensor) -> torch.Tensor:
-        """x: (B, 1, d); updates this layer's ``conv``/``state`` in place."""
-        return x + self.mixer.mamba2_decode(self.norm1(x), conv, state)
+    def block_prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                      buf_len: int, *, window: int = 0,
+                      positions_3d: Optional[torch.Tensor] = None):
+        """x: (B, S, d) → (y, this layer's cache, aux loss)."""
+        h = self.norm1(x)
+        if self.kind == "mamba":
+            mixed, cache = self.mixer.prefill(h)
+            x = x + mixed
+            if hasattr(self, "ffn"):
+                x = x + self.ffn(self.norm2(x))
+            return x, cache, torch.zeros((), device=x.device)
+        if self.kind == "mla":
+            y, cache = self.attn.prefill(h, positions, buf_len, window)
+        else:
+            y, cache = self.attn.prefill(h, positions, buf_len, window,
+                                         positions_3d)
+        x, aux = self._ffn(x + y)
+        return x, cache, aux
+
+    def block_decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     pos: int, *, window: int = 0) -> torch.Tensor:
+        """x: (B, 1, d); updates this layer's ``cache`` in place."""
+        h = self.norm1(x)
+        if self.kind == "mamba":
+            x = x + self.mixer.mamba2_decode(h, cache["conv"], cache["state"])
+            if hasattr(self, "ffn"):
+                x = x + self.ffn(self.norm2(x))
+            return x
+        x = x + self.attn.decode(h, cache, pos, window)
+        return self._ffn(x)[0]
+
+
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, buf_len: int,
+                 device) -> Dict[str, torch.Tensor]:
+    if kind == "mamba":
+        return S.init_mamba2_cache(cfg, batch, device)
+    if kind == "mla":
+        return A.init_mla_cache(cfg, batch, buf_len, device)
+    return A.init_gqa_cache(cfg, batch, buf_len, device)
+
+
+def _stacked(lead, one: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Zeros of ``one``'s leaves with leading stacking axes ``lead``."""
+    return {k: torch.zeros((*lead, *v.shape), dtype=v.dtype, device=v.device)
+            for k, v in one.items()}
+
+
+def _at(stack: Dict[str, torch.Tensor], *idx) -> Dict[str, torch.Tensor]:
+    """One layer's cache: views into the stacked leaves."""
+    return {k: v[idx] for k, v in stack.items()}
+
+
+def _put(stack: Dict[str, torch.Tensor], idx, cache) -> None:
+    for k, v in cache.items():
+        stack[k][idx].copy_(v)
+
+
+# ======================================================================
+# layer schedules
+# ======================================================================
+
+def _schedule(cfg: ArchConfig):
+    """Returns (kind, counts...) describing the layer layout."""
+    if cfg.family == "dense" and cfg.local_global_ratio:
+        r = cfg.local_global_ratio
+        units = cfg.num_layers // (r + 1)
+        tail = cfg.num_layers - units * (r + 1)
+        return ("local_global", r, units, tail)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        e = cfg.hybrid_attn_every
+        units = cfg.num_layers // e
+        tail = cfg.num_layers - units * e
+        return ("hybrid", e, units, tail)
+    return ("uniform", cfg.num_layers)
+
+
+def _window_for(cfg: ArchConfig) -> int:
+    if cfg.attention == "sliding" and cfg.sliding_window:
+        return cfg.sliding_window
+    return 0
+
+
+# ======================================================================
+# positions
+# ======================================================================
+
+def make_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    return torch.arange(seq, dtype=torch.int32,
+                        device=device)[None, :].expand(batch, seq)
+
+
+def vlm_positions_3d(batch: int, seq: int, num_patches: int,
+                     device=None) -> torch.Tensor:
+    """Qwen2-VL M-RoPE ids: the patch prefix gets a (t=0, h, w) grid; text
+    runs on with t = h = w = index, where M-RoPE is 1-D RoPE (so the decode
+    path, which rotates with a scalar position, is consistent).
+
+    Returns (3, B, S) int32.
+    """
+    side = max(int(num_patches ** 0.5), 1)
+    idx = torch.arange(seq, device=device)
+    in_img = idx < num_patches
+    t = torch.where(in_img, 0, idx)
+    h = torch.where(in_img, idx // side, idx)
+    w = torch.where(in_img, idx % side, idx)
+    pos3 = torch.stack([t, h, w]).to(torch.int32)            # (3, S)
+    return pos3[:, None, :].expand(3, batch, seq)
+
+
+# ======================================================================
+# the model
+# ======================================================================
+
+class CodebookEmbedding(nn.Module):
+    """MusicGen's K codebook tables, ``table`` (K, V, d)."""
+
+    def __init__(self, k: int, vocab: int, d_model: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(k, vocab, d_model))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.table.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, K, S) ids → the sum of the K embeddings, (B, S, d)."""
+        books = torch.arange(self.table.shape[0],
+                             device=tokens.device)[None, :, None]
+        return self.table[books, tokens].sum(dim=1)     # (B, K, S, d) → sum
+
+
+class CodebookHead(nn.Module):
+    """MusicGen's K output heads, ``w`` (K, d, V)."""
+
+    def __init__(self, k: int, d_model: int, vocab: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(k, d_model, vocab))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.w.normal_(0.0, self.w.shape[1] ** -0.5, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, d) → (B, S, K, V)."""
+        return torch.einsum("bsd,kdv->bskv", x, self.w)
 
 
 class DecoderLM(nn.Module):
-    """Embedding → Mamba2 blocks → final norm → LM head.
+    """Embedding → blocks in the config's schedule → final norm → LM head.
 
-    Parameters are allocated uninitialised; :func:`init_params` draws them
-    and :func:`from_jax_params` loads a reference tree.
+    Parameters are allocated uninitialised (on the default device, or in a
+    ``with torch.device(...)`` block); :func:`init_params` draws them and
+    :func:`from_jax_params` loads a reference tree.
     """
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                             f"(one of {_FAMILIES})")
         self.cfg = cfg
-        self.embed = L.Embedding(cfg.vocab_size, cfg.d_model)
+        if cfg.num_codebooks:
+            # MusicGen: K codebook embeddings (summed) + K output heads.
+            self.cb_embed = CodebookEmbedding(cfg.num_codebooks,
+                                              cfg.vocab_size, cfg.d_model)
+            self.cb_head = CodebookHead(cfg.num_codebooks, cfg.d_model,
+                                        cfg.vocab_size)
+        else:
+            self.embed = L.Embedding(cfg.vocab_size, cfg.d_model)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps)
         if not cfg.tie_embeddings:
+            # (unused by the audio heads; the reference keeps it too)
             self.lm_head = L.Linear(cfg.d_model, cfg.vocab_size)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        sched = _schedule(cfg)
+        if sched[0] == "uniform":
+            self.blocks = nn.ModuleList(Block(cfg)
+                                        for _ in range(cfg.num_layers))
+        elif sched[0] == "local_global":
+            _, r, units, tail = sched
+            self.units = nn.ModuleList(nn.ModuleDict({
+                "local": nn.ModuleList(Block(cfg) for _ in range(r)),
+                "global": Block(cfg)}) for _ in range(units))
+            if tail:
+                self.tail = nn.ModuleList(Block(cfg) for _ in range(tail))
+        else:  # hybrid
+            _, e, units, tail = sched
+            self.units = nn.ModuleList(
+                nn.ModuleList(Block(cfg, "mamba") for _ in range(e))
+                for _ in range(units))
+            if tail:
+                self.tail = nn.ModuleList(Block(cfg, "mamba")
+                                          for _ in range(tail))
+            # ONE shared attention+MLP block reused at every unit boundary.
+            self.shared_attn = Block(cfg, "gqa")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The reference's ``init_params`` distributions, drawn in a fixed
+        """The reference's ``init_params`` distributions, drawn in module
         order from ``generator``."""
-        self.embed.reset_parameters(generator)
-        self.final_norm.reset_parameters(generator)
-        if not self.cfg.tie_embeddings:
-            self.lm_head.reset_parameters(generator)
-        for blk in self.blocks:
-            blk.reset_parameters(generator)
+        _reset_children(self, generator)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.final_norm.scale.device
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) token ids → (B, S, d)."""
-        return self.embed(tokens)
+    # ------------------------------------------------------------ helpers
+
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens → (B, S, d). Audio sums K codebook embeddings of (B, K, S)
+        ids; the VLM prepends the given patch embeddings."""
+        if self.cfg.num_codebooks:
+            return self.cb_embed(tokens)
+        x = self.embed(tokens)
+        if self.cfg.mrope and embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.num_codebooks:
+            return self.cb_head(x)                           # (B, S, K, V)
         if self.cfg.tie_embeddings:
             return x @ self.embed.table.T
         return self.lm_head(x)
 
-    def init_decode_caches(self, batch: int) -> Dict[str, Any]:
+    def _caches(self, batch: int, buf_len: int,
+                uniform_buf: int) -> Dict[str, Any]:
+        """Zero caches in the reference's layout; the uniform stack's
+        buffers hold ``uniform_buf`` slots."""
+        cfg, dev = self.cfg, self.device
+        sched = _schedule(cfg)
+        if sched[0] == "uniform":
+            return {"blocks": _stacked((cfg.num_layers,), _block_cache(
+                cfg, _block_kind(cfg), batch, uniform_buf, dev))}
+        if sched[0] == "local_global":
+            _, r, units, tail = sched
+            wbuf = min(cfg.sliding_window, buf_len)
+            local = _block_cache(cfg, "gqa", batch, wbuf, dev)
+            out = {"units": {
+                "local": _stacked((units, r), local),
+                "global": _stacked((units,), _block_cache(
+                    cfg, "gqa", batch, buf_len, dev))}}
+            if tail:
+                out["tail"] = _stacked((tail,), local)
+            return out
+        _, e, units, tail = sched
+        mamba = _block_cache(cfg, "mamba", batch, 0, dev)
+        out = {"units": {"mamba": _stacked((units, e), mamba),
+                         "attn": _stacked((units,), _block_cache(
+                             cfg, "gqa", batch, buf_len, dev))}}
+        if tail:
+            out["tail"] = _stacked((tail,), mamba)
+        return out
+
+    def init_decode_caches(self, batch: int, buf_len: int) -> Dict[str, Any]:
         """Zero caches in :meth:`prefill`'s layout, on the model's device."""
-        one = S.init_mamba2_cache(self.cfg, batch, self.device)
-        n = self.cfg.num_layers
-        return {"blocks": {k: v[None].repeat(n, *([1] * v.ndim))
-                           for k, v in one.items()}}
+        window = _window_for(self.cfg)
+        return self._caches(batch, buf_len,
+                            min(window, buf_len) if window else buf_len)
+
+    # -------------------------------------------------------- entry points
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """Populate all caches; return (last-token logits (B, 1, V), caches)."""
-        x = self._embed_inputs(tokens)
-        caches = self.init_decode_caches(x.shape[0])
-        stacked = caches["blocks"]
-        for i, blk in enumerate(self.blocks):
-            x, cache = blk.block_prefill(x)
-            stacked["conv"][i].copy_(cache["conv"])
-            stacked["state"][i].copy_(cache["state"])
+    def prefill(self, tokens: torch.Tensor, *, buf_len: Optional[int] = None,
+                embeds: Optional[torch.Tensor] = None):
+        """Populate all caches; return (last-token logits, caches).
+
+        tokens: (B, S) ids, (B, K, S) for audio; ``embeds`` (B, P, d)
+        patch embeddings for the VLM. Logits are (B, 1, V), (B, 1, K, V)
+        for audio.
+        """
+        cfg = self.cfg
+        x = self._embed_inputs(tokens, embeds)
+        b, s = x.shape[:2]
+        buf_len = buf_len or s
+        positions = make_positions(b, s, x.device)
+        pos3 = (vlm_positions_3d(b, s, cfg.vlm_num_patches, x.device)
+                if cfg.mrope else None)
+        window = _window_for(cfg)
+        sched = _schedule(cfg)
+        caches = self._caches(b, buf_len, buf_len)
+
+        def run(blk, x, stack, idx, *, window=0, buf=buf_len):
+            x, cache, _ = blk.block_prefill(x, positions, buf, window=window,
+                                            positions_3d=pos3)
+            _put(stack, idx, cache)
+            return x
+
+        if sched[0] == "uniform":
+            for i, blk in enumerate(self.blocks):
+                x = run(blk, x, caches["blocks"], i, window=window)
+        elif sched[0] == "local_global":
+            win = cfg.sliding_window
+            wbuf = min(win, buf_len)
+            uc = caches["units"]
+            for u, unit in enumerate(self.units):
+                for j, blk in enumerate(unit["local"]):
+                    x = run(blk, x, uc["local"], (u, j), window=win, buf=wbuf)
+                x = run(unit["global"], x, uc["global"], u)
+            for i, blk in enumerate(getattr(self, "tail", ())):
+                x = run(blk, x, caches["tail"], i, window=win, buf=wbuf)
+        else:  # hybrid
+            uc = caches["units"]
+            for u, unit in enumerate(self.units):
+                for j, blk in enumerate(unit):
+                    x = run(blk, x, uc["mamba"], (u, j))
+                x = run(self.shared_attn, x, uc["attn"], u)
+            for i, blk in enumerate(getattr(self, "tail", ())):
+                x = run(blk, x, caches["tail"], i)
+
         x = self.final_norm(x[:, -1:])
         return self._lm_logits(x), caches
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, caches: Dict[str, Any]):
-        """One decode step. tokens: (B, 1) → (logits (B, 1, V), caches).
-
-        Updates ``caches`` in place and returns the same object.
-        """
+    def decode_step(self, tokens: torch.Tensor, caches: Dict[str, Any],
+                    pos: int):
+        """One decode step at absolute position ``pos``. tokens: (B, 1)
+        ((B, K, 1) for audio) → (logits, caches), the caches updated in
+        place and returned."""
+        cfg = self.cfg
         x = self._embed_inputs(tokens)
-        stacked = caches["blocks"]
-        for i, blk in enumerate(self.blocks):
-            x = blk.block_decode(x, stacked["conv"][i], stacked["state"][i])
+        window = _window_for(cfg)
+        sched = _schedule(cfg)
+        if sched[0] == "uniform":
+            for i, blk in enumerate(self.blocks):
+                x = blk.block_decode(x, _at(caches["blocks"], i), pos,
+                                     window=window)
+        elif sched[0] == "local_global":
+            win = cfg.sliding_window
+            uc = caches["units"]
+            for u, unit in enumerate(self.units):
+                for j, blk in enumerate(unit["local"]):
+                    x = blk.block_decode(x, _at(uc["local"], u, j), pos,
+                                         window=win)
+                x = unit["global"].block_decode(x, _at(uc["global"], u), pos)
+            for i, blk in enumerate(getattr(self, "tail", ())):
+                x = blk.block_decode(x, _at(caches["tail"], i), pos,
+                                     window=win)
+        else:  # hybrid
+            uc = caches["units"]
+            for u, unit in enumerate(self.units):
+                for j, blk in enumerate(unit):
+                    x = blk.block_decode(x, _at(uc["mamba"], u, j), pos)
+                x = self.shared_attn.block_decode(x, _at(uc["attn"], u), pos)
+            for i, blk in enumerate(getattr(self, "tail", ())):
+                x = blk.block_decode(x, _at(caches["tail"], i), pos)
         x = self.final_norm(x)
         return self._lm_logits(x), caches
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> DecoderLM:
-    """A model with random weights drawn on the CPU from
-    ``torch.Generator().manual_seed(seed)``, then moved to ``device``."""
-    model = DecoderLM(cfg)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.to(device) if device is not None else model
+def _reset_children(mod: nn.Module, generator: torch.Generator) -> None:
+    """Each child's ``reset_parameters`` in registration order, looking
+    through the containers of the layer stacks."""
+    for child in mod.children():
+        if isinstance(child, (nn.ModuleList, nn.ModuleDict)):
+            _reset_children(child, generator)
+        else:
+            child.reset_parameters(generator)
 
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> DecoderLM:
+    """A model with random weights drawn on ``device`` (default the CPU)
+    from ``torch.Generator(device).manual_seed(seed)``: full-size weights
+    are drawn on the card itself, never staged through host memory. The
+    CPU's and the card's generators give different numbers."""
+    dev = torch.device("cpu" if device is None else device)
+    with torch.device(dev):
+        model = DecoderLM(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model.reset_parameters(gen)
+    return model
+
+
+# ======================================================================
+# weights carried from a reference tree
+# ======================================================================
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
     for key, val in tree.items():
@@ -150,23 +478,45 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", np.asarray(val)
 
 
+def _unstack(name: str, arr: np.ndarray, hybrid: bool):
+    """(state_dict name, array) pairs of one reference leaf: the stacked
+    trees lose their leading layer axes."""
+    head, _, rest = name.partition(".")
+    if head in ("blocks", "tail"):
+        for i in range(arr.shape[0]):
+            yield f"{head}.{i}.{rest}", arr[i]
+    elif head == "units" and hybrid:           # (units, E, ...)
+        for u in range(arr.shape[0]):
+            for j in range(arr.shape[1]):
+                yield f"units.{u}.{j}.{rest}", arr[u, j]
+    elif head == "units":
+        part, _, leaf = rest.partition(".")
+        for u in range(arr.shape[0]):
+            if part == "local":                # (units, R, ...)
+                for j in range(arr.shape[1]):
+                    yield f"units.{u}.local.{j}.{leaf}", arr[u, j]
+            else:                              # global: (units, ...)
+                yield f"units.{u}.{part}.{leaf}", arr[u]
+    else:
+        yield name, arr
+
+
 def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
                     device=None) -> DecoderLM:
     """The port's model computing the same function as a reference tree.
 
     ``tree`` is the reference's ``init_params`` pytree as nested dicts of
-    numpy arrays, with ``blocks`` stacked on a leading layer axis. Weights
-    keep their layout (``Linear.w`` is ``(d_in, d_out)`` in both packages),
-    so loading unstacks the layers and renames nothing.
+    numpy arrays, with ``blocks``/``tail`` stacked on a leading layer axis
+    and ``units`` on a unit axis (and, inside a unit, a layer axis for the
+    local and Mamba2 stacks). Weights keep their layout (``Linear.w`` is
+    ``(d_in, d_out)`` in both packages), so loading unstacks the layers and
+    renames nothing.
     """
-    state = {}
-    for name, arr in _flatten(tree):
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(arr.shape[0]):
-                state[f"blocks.{i}.{rest}"] = torch.tensor(arr[i])
-        else:
-            state[name] = torch.tensor(arr)
-    model = DecoderLM(cfg)
-    model.load_state_dict(state, strict=True)
+    hybrid = _schedule(cfg)[0] == "hybrid"
+    state = {key: torch.tensor(val)
+             for name, arr in _flatten(tree)
+             for key, val in _unstack(name, arr, hybrid)}
+    with torch.device("meta"):
+        model = DecoderLM(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
     return model.to(device) if device is not None else model

@@ -13,7 +13,12 @@ another order (the kernels add over ascending d, ``torch.sum`` in its own
 order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
 ``atol=1e-5 · max |y|`` — f32 sums of up to lc · N products and of
 cumulative sums taken in another order than the plain version's einsums.
+Reduced language models on the card against the CPU: ``rtol = atol =
+1e-4`` on prefill logits and caches (f32 products in another order, a few
+ulps each through two layers), greedy tokens equal.
 """
+
+import copy
 
 import socket
 
@@ -26,7 +31,10 @@ from repro_torch.core import dataplane, distributed  # noqa: E402
 from repro_torch.core.pipeline import SquashConfig, SquashIndex  # noqa: E402
 from repro_torch.core import segments  # noqa: E402
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ops, ref, ssd  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
 
 ADC_RTOL = 1e-5
@@ -374,6 +382,8 @@ def _far_tiles(c_mat, b_mat, da, x, tile=64):
     # The LM serve prefill's shape with slow decay (small dt, as trained
     # models run): every s-tile behind an l-tile carries weight.
     (64, 32, 256, 128, 64, 1e-3),
+    # zamba2-7b's Mamba2 blocks at 1 × 512 tokens: 112 heads, N = 64.
+    (2, 112, 256, 64, 64, 1.0), (2, 112, 256, 64, 64, 1e-3),
 ])
 def test_ssd_intra_kernel_equals_plain(cuda, g, h, lc, n, p, da_scale):
     args = _ssd_inputs(np.random.default_rng(lc + n), g, h, lc, n, p,
@@ -390,6 +400,7 @@ def test_ssd_intra_kernel_equals_plain(cuda, g, h, lc, n, p, da_scale):
 
 
 @pytest.mark.parametrize("g,h,lc,n,p", [(4, 32, 256, 128, 64),
+                                         (2, 112, 256, 64, 64),
                                          (3, 5, 200, 24, 64)])
 @pytest.mark.parametrize("da_scale", [1.0, 1e-3])
 def test_ssd_intra_kernel_on_strided_views_equals_plain(cuda, g, h, lc, n, p,
@@ -435,3 +446,39 @@ def test_ssd_chunked_on_card_equals_cpu(cuda):
                                atol=SSD_ATOL_SCALE * float(y.abs().max()))
     torch.testing.assert_close(st_c.cpu(), st, rtol=SSD_RTOL,
                                atol=SSD_ATOL_SCALE * float(st.abs().max()))
+
+
+def _leaves(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "deepseek-v2-lite-16b",
+                                  "zamba2-7b"])
+def test_reduced_lm_on_card_equals_cpu(cuda, name):
+    """Prefill logits and every cache leaf, then greedy tokens through the
+    engine at kv_bits 0 and 8; zamba2's Mamba2 blocks launch kernel 6."""
+    cfg = get_config(name).reduced(
+        **({"num_layers": 7} if name == "zamba2-7b" else {}))
+    model = T.init_params(cfg, seed=0)
+    model_c = copy.deepcopy(model).to(cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24),
+                                                dtype=np.int32)
+    tokens = torch.from_numpy(prompts).long()
+    logits, caches = model.prefill(tokens, buf_len=30)
+    before = ssd.launches
+    logits_c, caches_c = model_c.prefill(tokens.to(cuda), buf_len=30)
+    assert ssd.launches - before == (7 if name == "zamba2-7b" else 0)
+    torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
+    want = dict(_leaves(caches))
+    for key, val in _leaves(caches_c):
+        torch.testing.assert_close(val.cpu(), want[key], rtol=1e-4,
+                                   atol=1e-4, msg=key)
+    for bits in (0, 8):
+        sc = ServeConfig(max_new_tokens=6, kv_bits=bits)
+        out = Engine(cfg, model, sc, device="cpu").generate(prompts)
+        out_c = Engine(cfg, model_c, sc).generate(prompts)
+        np.testing.assert_array_equal(out_c, out)

@@ -23,6 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import list_configs as jax_list_configs  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import transformer as jax_T  # noqa: E402
 from repro.serve import Engine as JaxEngine  # noqa: E402
@@ -64,21 +65,25 @@ def _close(got, want):
 
 
 def test_config_registry_has_only_the_ported_config():
-    assert list_configs() == ["mamba2-370m"]
+    """The registry holds all ten configs, each equal to the reference's."""
+    assert list_configs() == jax_list_configs() and len(list_configs()) == 10
+    for name in list_configs():
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
+            jax_get_config(name))
     full = get_config("mamba2-370m")
-    assert dataclasses.asdict(full) == dataclasses.asdict(
-        jax_get_config("mamba2-370m"))
     assert (full.num_layers, full.d_model, full.vocab_size, full.ssm_state,
             full.ssm_headdim, full.ssm_chunk) == (48, 1024, 50280, 128, 64, 256)
     with pytest.raises(KeyError, match="mamba2-370m"):
-        get_config("llama3-8b")
+        get_config("llama3-70b")
 
 
 def test_other_families_raise_naming_the_roadmap():
+    """Every registered family builds; an unknown ``family`` raises."""
     llama = jax_get_config("llama3-8b").reduced()
     port_cfg = ArchConfig(**dataclasses.asdict(llama))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.DecoderLM(port_cfg)
+    assert isinstance(T.DecoderLM(port_cfg).blocks[0].attn, torch.nn.Module)
+    with pytest.raises(ValueError, match="family"):
+        T.DecoderLM(dataclasses.replace(port_cfg, family="diffusion"))
 
 
 def test_from_jax_params_carries_every_weight(jax_params, model, cfg):
@@ -126,7 +131,7 @@ def test_prefill_and_decode_match_reference(jax_params, model, cfg, seq):
         want_logits, want_caches = jax_T.decode_step(
             jax_params, jnp.asarray(tok[:, None]), want_caches, seq + i, cfg)
         got_logits, got_caches = model.decode_step(
-            torch.from_numpy(tok[:, None]).long(), got_caches)
+            torch.from_numpy(tok[:, None]).long(), got_caches, seq + i)
         _close(got_logits, want_logits)
         for key in ("conv", "state"):
             _close(got_caches["blocks"][key], want_caches["blocks"][key])
@@ -136,7 +141,7 @@ def test_prefill_and_decode_match_reference(jax_params, model, cfg, seq):
 
 def test_init_decode_caches_match_reference_layout(model, cfg):
     want = jax_T.init_decode_caches(cfg, 3, 8)
-    got = model.init_decode_caches(3)
+    got = model.init_decode_caches(3, 8)
     for key in ("conv", "state"):
         assert tuple(got["blocks"][key].shape) == want["blocks"][key].shape
         assert not got["blocks"][key].any()
@@ -164,8 +169,10 @@ def test_engine_sampling_is_seeded(model, cfg):
 
 
 def test_engine_refuses_kv_bits_and_a_model_on_another_device(model, cfg):
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        Engine(cfg, model, ServeConfig(kv_bits=8), device="cpu")
+    """``kv_bits`` must divide 32 (a 3-bit code would straddle words)."""
+    with pytest.raises(ValueError, match="divide 32"):
+        Engine(cfg, model, ServeConfig(kv_bits=3), device="cpu")
+    Engine(cfg, model, ServeConfig(kv_bits=8), device="cpu")
     with pytest.raises(ValueError, match="model.to"):
         Engine(cfg, model, device="meta")
 
