@@ -32,8 +32,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   gemma3-4b and zamba2-7b at 7 (one 5+1 local:global unit or one unit of
   6 Mamba2 blocks + the shared attention block, and a tail of one), and
   arctic-480b at its reduced size (one full-width layer alone holds
-  53.5 GB of f32 experts); random weights from seed 0 drawn on the CPU and
-  copied to the card. 1 request of 512 tokens (gemma3: 1,280, past its
+  53.5 GB of f32 experts); random weights from seed 0 drawn on the card and
+  copied to the CPU. 1 request of 512 tokens (gemma3: 1,280, past its
   1,024-token ring; qwen2-vl: after 256 random patch embeddings; musicgen:
   4 codebook streams) prefilled on the CPU and on the card: logits and
   every cache leaf within 5e-3 of their largest magnitude; a TF32 control
@@ -48,6 +48,37 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   tokens the two runs agree on; then one prefill and one decode step of
   the same model under ``torch.profiler``. Each model is freed before the
   next phase.
+* Train check: ``mamba2-370m`` at full size, weights drawn on the card and
+  copied to the CPU, one ``train.make_train_step`` step (AdamW, remat) on
+  a seeded 2 × 512-token batch on the CPU and on the card: loss, ce and
+  grad norm within 5e-3 relative; every parameter's gradient within 2e-2
+  of its largest CPU magnitude (at 48 layers each side's float32
+  gradients lie up to 7.3e-3 / 8.4e-3 from float64 ones,
+  ``tools/train_precision.py``), the mixer's (``A_log``, ``dt_bias``,
+  ``conv_w``, the in-projections) reported apart; every updated parameter
+  within 2 · lr
+  (Adam's first step moves an element by up to lr either way, so a
+  gradient that is 0 up to rounding may take either sign). A control on
+  the card with kernel 6's output cut from the graph (its state before
+  its autograd Function) must miss the mixer's gradients by more than the
+  tolerance. Kernel 6 must launch twice per layer (forward, recompute).
+* SSD grad: kernel 6's ``ssd.SsdIntraFunction`` at the training shape (G =
+  128, H = 32, lc = 256, N = 128, P = 64) on the strided views, dC, dB,
+  d(da) and dx against plain autograd of the plain version (rtol 1e-4,
+  atol 1e-5 · max); the forward kernel's and the plain backward's device
+  times, the backward's bound.
+* Train run: ``launch/train.train`` for mamba2-370m at full size, weights
+  drawn on the card, 6 steps of 16 × 4,096 tokens in two micro-batches:
+  first-step seconds, steady ms, tokens/s, peak memory, every step's
+  loss and grad norm (finite), kernel 6's launches per step (2 × (48 +
+  48)); one steady step under ``torch.profiler`` (device ms by class, with
+  kernel 6's backward and the AdamW pass as ranges); then a checkpoint of
+  the model and optimizer state saved and restored (seconds, bytes) and
+  one more step from each on 4 × 4,096 tokens: equal losses, exactly.
+* Train llama3 width: llama3-8b at full width and 2 layers (1.487 B
+  parameters), the same one-step card-vs-CPU check at 1 × 512 tokens, then
+  4 timed steps at 4 × 2,048 (step ms, tokens/s, peak memory): GQA, RoPE
+  and the MLP backward at full width.
 * Path A (direct Stage 4, the default formulation): the SIFT1M-shaped
   synthetic dataset (1,000,000 × 128, 4 attributes of cardinality 16, the
   §5.1 predicates at ≈8 % joint selectivity), P=10, b=4d, S=8 and
@@ -123,7 +154,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   compaction and restack seconds are reported.
 
 Launch counters are set to 0 just before each path (LM serve, each LM
-family's card prefill and generation, each search path, the extraction,
+family's card prefill and generation, the train run, each search path, the extraction,
 the serverless local run, each mesh search, the live phase) and read just
 after; every kernel must have launched on the path that runs it.
 Every
@@ -141,6 +172,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -160,6 +192,7 @@ LM_ARCH = "mamba2-370m"
 LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 8, 2048, 32
 LM_TOL = 5e-3                  # of the largest |value|: see the docstring
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
+SSD_GRAD_RTOL, SSD_GRAD_ATOL_SCALE = 1e-4, 1e-5
 SPIN_CYCLES = 100_000_000      # ~50 ms of the card ahead of timed launches
 
 
@@ -991,7 +1024,7 @@ def lm_check(prompt_len: int = 512, new_tokens: int = 8):
 
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
-    model_cpu = T.init_params(cfg, seed=0)
+    model_cpu = T.init_params(cfg, seed=0, device="cpu")
     model_gpu = copy.deepcopy(model_cpu).to("cuda")
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(0).integers(
@@ -1194,6 +1227,23 @@ def _cut(full, run) -> dict:
     return {k: [a[k], b[k]] for k in a if a[k] != b[k]}
 
 
+def card_and_cpu_models(cfg):
+    """``cfg``'s model with weights from seed 0 drawn on the card (seconds,
+    where the CPU takes a minute for the LM families' ~11 B parameters)
+    and a copy of it on the CPU: (card model, CPU model, draw s, copy s)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    model_gpu = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model_cpu = copy.deepcopy(model_gpu).cpu()
+    return model_gpu, model_cpu, init_s, time.perf_counter() - t0
+
+
 def family_check(cfg, full_cfg, prompt_len: int, new_tokens: int):
     """One config at ``cfg``'s size on the CPU (plain versions) and on the
     card: prefill logits and every cache leaf within ``LM_TOL`` of their
@@ -1204,7 +1254,6 @@ def family_check(cfg, full_cfg, prompt_len: int, new_tokens: int):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.serve import Engine, ServeConfig
 
     rng = np.random.default_rng(0)
@@ -1215,13 +1264,7 @@ def family_check(cfg, full_cfg, prompt_len: int, new_tokens: int):
               .astype(np.float32) if cfg.mrope else None)
     prefix = cfg.vlm_num_patches if cfg.mrope else 0
     buf_len = prefix + prompt_len + new_tokens
-    t0 = time.perf_counter()
-    model_cpu = T.init_params(cfg, seed=0)
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model_gpu = copy.deepcopy(model_cpu).to("cuda")
-    torch.cuda.synchronize()
-    copy_s = time.perf_counter() - t0
+    model_gpu, model_cpu, init_s, copy_s = card_and_cpu_models(cfg)
     tokens = torch.from_numpy(prompts).long()
     emb = None if embeds is None else torch.from_numpy(embeds)
 
@@ -1251,7 +1294,7 @@ def family_check(cfg, full_cfg, prompt_len: int, new_tokens: int):
               "params": sum(p.numel() for p in model_cpu.parameters()),
               "cut": _cut(full_cfg, cfg), "prompt_len": prompt_len,
               "embeds": None if embeds is None else list(embeds.shape),
-              "buf_len": buf_len, "init_cpu_s": init_s, "to_card_s": copy_s,
+              "buf_len": buf_len, "init_card_s": init_s, "to_cpu_s": copy_s,
               "cpu_prefill_s": cpu_s, "card_prefill_s": gpu_s,
               "ssd_intra_launches_per_prefill": launches,
               "tolerance": f"max |card - cpu| <= {LM_TOL} * max |cpu|"}
@@ -1370,6 +1413,401 @@ def lm_serve_llama3(requests: int, prompt_len: int, new_tokens: int):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- training
+
+TRAIN_LR = 3e-4               # AdamWConfig's default
+# Gradients, card vs CPU, of the largest CPU magnitude of each leaf. At
+# mamba2-370m's 48 layers the CPU's own float32 gradients lie up to 7.3e-3
+# of a leaf's largest magnitude from float64 ones, and the card's 8.4e-3
+# (tools/train_precision.py, on one H100), so LM_TOL is below the float32
+# floor: two float32 runs may differ by about the sum of the two. A
+# gradient cut from kernel 6 misses the mixer's by 1.1.
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_CHECK_SHAPE = (2, 512)  # card vs CPU, one step
+TRAIN_RUN = dict(steps=6, batch=16, seq=4096, accum=2)
+LLAMA3_TRAIN_CHECK, LLAMA3_TRAIN_TIMED = (1, 512), (4, 2048)
+LLAMA3_TRAIN_STEPS = 4
+RESUME_BATCH = (4, 4096)      # the step after a checkpoint's restore
+MIXER_GRADS = ("A_log", "dt_bias", "conv_w", "in_z", "in_xbc", "in_dt")
+
+
+def one_step_check(phase, cfg, model_gpu, model_cpu, shape, extra=None):
+    """One train step on the CPU and one on the card from the same weights
+    (``model_cpu`` a copy of ``model_gpu``),
+    zero optimizer state and seeded batch: loss, ce and grad norm within
+    ``LM_TOL`` relative, every parameter's gradient within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude, every updated parameter
+    within ``2 · lr``
+    (Adam's first step moves an element by ``lr · g/(|g| + eps)``, up to
+    ``lr`` either way: a gradient that is 0 up to rounding may take either
+    sign on the two sides). Returns the card's model, the CPU's gradients,
+    the result and whether every check held."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    batch = make_batch(cfg, *shape, 0, "cpu")
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    opt = AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    result = {"phase": phase, "arch": cfg.name,
+              "params": sum(p.numel() for p in model_cpu.parameters()),
+              "batch": list(shape),
+              "tolerance": f"loss, ce and grad norm: |card - cpu| <= "
+              f"{LM_TOL} * |cpu|; each gradient: max |card - cpu| <= "
+              f"{TRAIN_GRAD_TOL} * max |cpu| (the float32 floor at depth: "
+              f"see TRAIN_GRAD_TOL); updated parameters: max "
+              f"|card - cpu| <= 2 * lr = {2 * TRAIN_LR} (Adam's first step "
+              f"moves an element by lr * g / (|g| + eps), up to lr either "
+              f"way, so a gradient that is 0 up to rounding may take either "
+              f"sign on the two sides)", **(extra or {})}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m_c = step(model_cpu, adamw_init(dict(model_cpu.named_parameters()), opt),
+               batch)
+    result["cpu_step_s"] = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m_g = step(model_gpu, adamw_init(dict(model_gpu.named_parameters()), opt),
+               batch_g)
+    torch.cuda.synchronize()
+    result["card_step_s"] = time.perf_counter() - t0
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result["ssd_intra_launches"] = ops.launch_counts()["ssd_intra"]
+    ok = True
+    for key in ("loss", "ce", "grad_norm"):
+        c, g = float(m_c[key]), float(m_g[key])
+        result[key] = {"cpu": c, "card": g, "rel_err": abs(g - c) / abs(c)}
+        ok = ok and math.isfinite(g) and abs(g - c) <= LM_TOL * abs(c)
+    grads_c = {name: p.grad for name, p in model_cpu.named_parameters()}
+    worst, worst_name, worst_mixer = 0.0, None, 0.0
+    for (name, p_c), p_g in zip(model_cpu.named_parameters(),
+                                model_gpu.parameters()):
+        g_c = grads_c[name]
+        g_g = p_g.grad.detach().cpu()
+        rel = float((g_g - g_c).abs().max()) / (float(g_c.abs().max())
+                                                or 1.0)
+        ok = ok and bool(torch.isfinite(g_g).all()) and rel <= TRAIN_GRAD_TOL
+        if rel > worst:
+            worst, worst_name = rel, name
+        if any(f".{k}" in name for k in MIXER_GRADS):
+            worst_mixer = max(worst_mixer, rel)
+    upd = max(float((p_g.detach().cpu() - p_c.detach()).abs().max())
+              for p_c, p_g in zip(model_cpu.parameters(),
+                                  model_gpu.parameters()))
+    ok = ok and upd <= 2 * TRAIN_LR
+    result.update({"worst_grad_rel_err": worst, "worst_grad": worst_name,
+                   "updated_params_max_abs_diff": upd})
+    if cfg.family in ("ssm", "hybrid"):
+        result["mixer_grads_worst_rel_err"] = worst_mixer
+    return model_gpu, grads_c, result, ok
+
+
+def train_check():
+    """mamba2-370m at full size: one train step on the CPU and on the card
+    (``one_step_check``), then a control: the card's gradients with kernel
+    6's output cut from the graph (its state before the autograd
+    Function) must differ from the CPU's beyond the tolerance in the
+    mixer's parameters."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.train import make_batch
+    from repro_torch.train import loss_fn
+
+    cfg = get_config(LM_ARCH)
+    model_gpu, model_cpu, init_s, copy_s = card_and_cpu_models(cfg)
+    control = copy.deepcopy(model_gpu)
+    model_gpu, grads_c, result, ok = one_step_check(
+        "train_check", cfg, model_gpu, model_cpu, TRAIN_CHECK_SHAPE,
+        {"init_card_s": init_s, "to_cpu_s": copy_s})
+    del model_gpu, model_cpu
+    # The control: kernel 6's output as it was before its autograd Function
+    # (no grad_fn) in a forward and backward on the card.
+    kernel_with_grad = ops.ssd_intra
+    ops.ssd_intra = ssd.ssd_intra
+    try:
+        batch = make_batch(cfg, *TRAIN_CHECK_SHAPE, 0, "cuda")
+        loss_fn(control, batch, cfg)[0].backward()
+    finally:
+        ops.ssd_intra = kernel_with_grad
+    worst = 0.0
+    for name, p in control.named_parameters():
+        if any(f".{k}" in name for k in MIXER_GRADS):
+            g_c = grads_c[name]
+            worst = max(worst, float((p.grad.cpu() - g_c).abs().max())
+                        / (float(g_c.abs().max()) or 1.0))
+    result["control_without_grad_fn_mixer_rel_err"] = worst
+    emit(result)
+    del control
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("train_check: the card's step disagrees with "
+                             "the CPU's beyond the tolerance")
+    if worst <= TRAIN_GRAD_TOL:
+        raise AssertionError("train_check: cutting kernel 6's gradient does "
+                             "not move the mixer's gradients past the "
+                             "tolerance; the check cannot see that fault")
+    if result["ssd_intra_launches"] != 2 * cfg.num_layers:
+        raise AssertionError(
+            f"train_check: kernel 6 launched {result['ssd_intra_launches']} "
+            f"times in a step, expected {2 * cfg.num_layers} (forward and "
+            "recompute of each layer)")
+
+
+def ssd_grad():
+    """Kernel 6's autograd Function at the training shape (8 × 4,096
+    tokens: G = 128) on the strided views ``ssd_chunked`` passes, against
+    plain autograd of the plain version: dC, dB, d(da), dx; the forward
+    kernel's and the plain backward's device times."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref, ssd
+
+    cfg = get_config(LM_ARCH)
+    h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    lc, nst, pd = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_headdim
+    g = TRAIN_RUN["batch"] // TRAIN_RUN["accum"] * TRAIN_RUN["seq"] // lc
+    d_inner = h * pd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    conv = torch.randn((g, lc, d_inner + 2 * nst), device="cuda",
+                       generator=gen).requires_grad_()
+    da_l = (-torch.empty((g, lc, h), device="cuda").exponential_(
+        generator=gen)).requires_grad_()
+    x_l = torch.randn((g, lc, h, pd), device="cuda",
+                      generator=gen).requires_grad_()
+    dy = torch.randn((g, h, lc, pd), device="cuda", generator=gen)
+    views = ssd_views(conv, da_l, x_l, nst)
+    got = torch.autograd.grad(ssd.ssd_intra_autograd(*views),
+                              (conv, da_l, x_l), dy)
+    want = torch.autograd.grad(ref.ssd_intra_ref(*views), (conv, da_l, x_l),
+                               dy)
+    parts = {"dC": (got[0][..., d_inner + nst:], want[0][..., d_inner + nst:]),
+             "dB": (got[0][..., d_inner:d_inner + nst],
+                    want[0][..., d_inner:d_inner + nst]),
+             "d(da)": (got[1], want[1]), "dx": (got[2], want[2])}
+    errs = {}
+    for name, (a, b) in parts.items():
+        scale = float(b.abs().max())
+        errs[name] = {"max_abs_err": float((a - b).abs().max()),
+                      "max_abs_ref": scale}
+        torch.testing.assert_close(a, b, rtol=SSD_GRAD_RTOL,
+                                   atol=SSD_GRAD_ATOL_SCALE * scale,
+                                   msg=f"ssd_grad {name}")
+    del got, want
+    vjp_in = [t.detach() for t in views]
+    pairs = lc * (lc + 1) // 2
+    # What the backward must move and compute: read C, B, da, x and dy,
+    # write dC, dB, d(da) and dx; per causal pair the score (2N) and its
+    # two gradient products (2N each, once per g), and per head and pair
+    # dM (2P), dx (2P), the decay and its gradient (~8 f32 operations).
+    nbytes = 4 * (4 * g * lc * nst + 2 * g * h * lc + 3 * g * h * lc * pd)
+    ops_ = g * pairs * (6 * nst + h * (4 * pd + 8))
+    b_ms, b_by = bound(nbytes, ops_)
+    result = {
+        "phase": "ssd_grad", "shape": {"G": g, "H": h, "lc": lc, "N": nst,
+                                       "P": pd},
+        "tolerance": f"rtol={SSD_GRAD_RTOL}, atol={SSD_GRAD_ATOL_SCALE} * "
+        "max |grad| (f32 sums of up to lc * max(N, P) products in another "
+        "order; d(da) a reverse cumulative sum of sums that cancel)",
+        "grads": errs,
+        "forward_kernel_ms": device_ms(lambda: ssd.ssd_intra(*vjp_in), 10),
+        "backward_ms": device_ms(
+            lambda: ref.ssd_intra_vjp(*vjp_in, dy), 3),
+        "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+        "backward_bytes": nbytes, "backward_f32_ops": ops_,
+        "plain_forward_ms": cuda_ms(lambda: ref.ssd_intra_ref(*vjp_in), 3)}
+    emit(result)
+    del conv, da_l, x_l, dy, views, vjp_in
+    torch.cuda.empty_cache()
+    return result
+
+
+def _train_profile(model, state, batch, step):
+    """Device time of one train step by class (``torch.profiler``): matrix
+    products, kernel 6, elementwise passes and copies; and, inside those,
+    the ranges of kernel 6's plain backward and of the AdamW pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ref
+    from repro_torch.train import steps as train_steps
+
+    vjp, update = ref.ssd_intra_vjp, train_steps.adamw_update
+
+    def vjp_ranged(*a):
+        with record_function("ssd_intra_backward"):
+            return vjp(*a)
+
+    def update_ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return update(*a, **kw)
+
+    ref.ssd_intra_vjp, train_steps.adamw_update = vjp_ranged, update_ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ref.ssd_intra_vjp, train_steps.adamw_update = vjp, update
+    ranges = {"ssd_intra_backward": 0.0, "adamw_update": 0.0}
+    rows = [r for r in _device_kernels(prof) if r[2] not in ranges]
+    for ev in prof.events():
+        if ev.name in ranges and str(ev.device_type).endswith("CPU"):
+            ranges[ev.name] += ev.device_time_total / 1e3
+    kernel_ms = sum(r[0] for r in rows) / 1e3
+    return {"host_wall_ms": wall_ms, "device_kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / wall_ms,
+            "kernel_launches": sum(r[1] for r in rows),
+            "split_ms": _split(rows),
+            "of_which_ms": {"intra_chunk_backward": ranges[
+                "ssd_intra_backward"], "adamw_pass": ranges["adamw_update"]},
+            "top_kernels": [{"name": k[:100], "ms": us / 1e3, "count": n}
+                            for us, n, k in rows[:12]]}
+
+
+def train_run():
+    """``launch/train.train``: mamba2-370m at full size, weights drawn on
+    the card, 6 steps of 16 × 4,096 tokens in two micro-batches; then one
+    steady step profiled, and a save / restore of the model and optimizer
+    state with one more step from each. Returns kernel 6's launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = launch_train.train(LM_ARCH, lr=TRAIN_LR, device="cuda", seed=0,
+                             **TRAIN_RUN)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["ssd_intra"]
+    model, state = rep.pop("model"), rep.pop("opt_state")
+    per_micro = 2 * cfg.num_layers
+    rep.update({"phase": "train_run", "total_s": total_s,
+                "tokens_per_step": TRAIN_RUN["batch"] * TRAIN_RUN["seq"],
+                "ssd_intra_launches": launches,
+                "expected_launches_per_step": per_micro * TRAIN_RUN["accum"]})
+    finite = all(math.isfinite(v) for v in rep["loss"] + rep["grad_norm"])
+    steps = rep["ssd_intra_launches_per_step"]
+    step = make_train_step(
+        cfg, AdamWConfig(lr=TRAIN_LR),
+        cosine_schedule(TRAIN_LR, warmup=max(TRAIN_RUN["steps"] // 10, 1),
+                        total=TRAIN_RUN["steps"]),
+        accum_steps=TRAIN_RUN["accum"])
+    batch = launch_train.make_batch(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"],
+                                    TRAIN_RUN["steps"], "cuda")
+    rep["profile"] = _train_profile(model, state, batch, step)
+
+    # Checkpoint: save, restore into a fresh model and state, and take one
+    # more step from each on the same batch.
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = save_pytree({"params": model.state_dict(), "opt": state}, d)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        fresh = T.init_params(cfg, seed=1, device="cuda")
+        t0 = time.perf_counter()
+        back = restore_pytree(
+            {"params": fresh.state_dict(),
+             "opt": adamw_init(dict(fresh.named_parameters()),
+                               AdamWConfig())}, d)
+        fresh.load_state_dict(back["params"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    resume = launch_train.make_batch(cfg, *RESUME_BATCH, TRAIN_RUN["steps"] + 1,
+                                     "cuda")
+    one = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    m_live = one(model, state, resume)
+    m_back = one(fresh, back["opt"], resume)
+    rep["checkpoint"] = {
+        "save_s": save_s, "restore_s": restore_s, "bytes": nbytes,
+        "resume_batch": list(RESUME_BATCH),
+        "loss_live": float(m_live["loss"]),
+        "loss_restored": float(m_back["loss"]),
+        "grad_norm_live": float(m_live["grad_norm"]),
+        "grad_norm_restored": float(m_back["grad_norm"])}
+    emit(rep)
+    del model, state, fresh, back
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("train_run: a loss or grad norm is not finite")
+    if any(n != per_micro * TRAIN_RUN["accum"] for n in steps):
+        raise AssertionError(f"train_run: kernel 6 launched {steps} times per "
+                             f"step, expected {per_micro * TRAIN_RUN['accum']}")
+    if rep["checkpoint"]["loss_live"] != rep["checkpoint"]["loss_restored"]:
+        raise AssertionError("train_run: the step after restore differs from "
+                             "the live step")
+    return launches
+
+
+def train_llama3_width():
+    """llama3-8b at full width and 2 layers (as lm_families runs it): the
+    one-step card-vs-CPU check at 1 × 512 tokens, then 4 timed steps at
+    4 × 2,048 on the card."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    full = get_config(LLAMA3_SERVE)
+    cfg = dataclasses.replace(full, num_layers=2)
+    model, model_cpu, init_s, copy_s = card_and_cpu_models(cfg)
+    model, _, result, ok = one_step_check(
+        "train_llama3_width", cfg, model, model_cpu, LLAMA3_TRAIN_CHECK,
+        {"cut": _cut(full, cfg), "init_card_s": init_s, "to_cpu_s": copy_s})
+    del model_cpu
+    opt = AdamWConfig(lr=TRAIN_LR)
+    state = adamw_init(dict(model.named_parameters()), opt)
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(LLAMA3_TRAIN_STEPS):
+        batch = make_batch(cfg, *LLAMA3_TRAIN_TIMED, i, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    steady = statistics.median(times[1:])
+    b, s = LLAMA3_TRAIN_TIMED
+    result["timed"] = {
+        "batch": [b, s], "steps": LLAMA3_TRAIN_STEPS,
+        "step_s": times, "steady_step_ms": steady * 1e3,
+        "tokens_per_s": b * s / steady, "loss": losses,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(result)
+    del model, state
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("train_llama3_width: the card's step disagrees "
+                             "with the CPU's beyond the tolerance")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("train_llama3_width: a loss is not finite")
 
 
 def extract_path(index):
@@ -1947,6 +2385,10 @@ def main(argv=None) -> int:
     del lm_model
     zamba_launches, zamba_shape = lm_families()
     lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
+    train_check()
+    grad_res = ssd_grad()
+    train_launches = train_run()
+    train_llama3_width()
 
     cfg_a = SquashConfig(num_partitions=10, max_bits_per_dim=8,
                          kmeans_iters=4, lloyd_iters=6)
@@ -1989,7 +2431,8 @@ def main(argv=None) -> int:
                 "adc_direct": launches_a["adc_direct"],
                 "adc_batch": launches_b["adc_batch"],
                 "extract_codes": extract_launches["extract_codes"],
-                "ssd_intra": lm_launches["ssd_intra"] + zamba_launches}
+                "ssd_intra": (lm_launches["ssd_intra"] + zamba_launches
+                              + train_launches)}
     missing = [name for name, n in per_path.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -2017,6 +2460,17 @@ def main(argv=None) -> int:
                 "mesh": mesh_phase(index_a, index_b, queries, preds),
                 "live": live_phase(index_b, queries, preds)}
     for entry in entries:
+        if entry["name"] == "ssd_intra":
+            entry["launches_by_phase"]["train"] = train_launches
+            entry["launches"] += train_launches
+            entry["training"] = {
+                key: grad_res[key] for key in (
+                    "shape", "forward_kernel_ms", "backward_ms",
+                    "backward_bound_ms", "backward_bound_by",
+                    "plain_forward_ms")}
+            entry["training"]["backward"] = (
+                "plain PyTorch (ref.ssd_intra_vjp) through "
+                "ssd.SsdIntraFunction: the TPU kernel has no backward")
         if entry["name"] in ("hamming_stacked", "adc_direct", "adc_batch"):
             entry["launches_by_phase"] = {
                 phase: counts[entry["name"]]

@@ -74,9 +74,10 @@ def extract_codes(segments, layout: SegmentLayout):
 
 
 def ssd_intra(c_mat, b_mat, da, x):
-    """(G,lc,N)/(G,lc,N)/(G,H,lc)/(G,H,lc,P) f32 → (G,H,lc,P) SSD intra-chunk."""
+    """(G,lc,N)/(G,lc,N)/(G,H,lc)/(G,H,lc,P) f32 → (G,H,lc,P) SSD intra-chunk.
+    On the card, the kernel with its gradient (``ssd.ssd_intra_autograd``)."""
     if c_mat.is_cuda:
-        return ssd.ssd_intra(c_mat, b_mat, da, x)
+        return ssd.ssd_intra_autograd(c_mat, b_mat, da, x)
     return ref.ssd_intra_ref(c_mat, b_mat, da, x)
 
 

@@ -21,7 +21,7 @@ from repro_torch.core.segments import SegmentLayout, extract_all
 
 __all__ = ["popcount32", "hamming_ref", "hamming_stacked_ref", "adc_lb_ref",
            "adc_lb_batch_ref", "adc_table_ref", "adc_lb_direct_ref",
-           "adc_direct_ref", "extract_ref", "ssd_intra_ref"]
+           "adc_direct_ref", "extract_ref", "ssd_intra_ref", "ssd_intra_vjp"]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -136,19 +136,51 @@ def extract_ref(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     return extract_all(segments, layout)
 
 
-def ssd_intra_ref(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """SSD intra-chunk term of every (batch·chunk, head) block.
-
-    c_mat/b_mat: (G, lc, N); da: (G, H, lc); x: (G, H, lc, P) →
-    (G, H, lc, P). ``exp`` sees only the lower triangle's differences: the
-    upper ones are positive and would overflow, and ``inf · 0`` is NaN.
-    """
+def _ssd_decay(da: torch.Tensor) -> torch.Tensor:
+    """(G, H, lc) da → (G, H, lc, lc) ``tril(exp(cs_l - cs_s))``, cs the
+    cumulative sum of da. ``exp`` sees only the lower triangle's
+    differences: the upper ones are positive and would overflow, and
+    ``inf · 0`` is NaN."""
     cs = torch.cumsum(da, dim=-1)                          # (G, H, lc)
     diff = cs[..., :, None] - cs[..., None, :]             # (G, H, lc, lc)
     ii = torch.arange(da.shape[-1], device=da.device)
     tri = ii[:, None] >= ii[None, :]
     zero = torch.zeros((), dtype=da.dtype, device=da.device)
-    decay = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
+    return torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
+
+
+def ssd_intra_ref(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """SSD intra-chunk term of every (batch·chunk, head) block.
+
+    c_mat/b_mat: (G, lc, N); da: (G, H, lc); x: (G, H, lc, P) →
+    (G, H, lc, P): ``y = (tril(exp(segsum(da))) ∘ C Bᵀ) · x``.
+    """
+    decay = _ssd_decay(da)
     scores = torch.einsum("gln,gsn->gls", c_mat, b_mat)    # (G, lc, lc)
     return torch.einsum("gls,ghls,ghsp->ghlp", scores, decay, x)
+
+
+def ssd_intra_vjp(c_mat: torch.Tensor, b_mat: torch.Tensor, da: torch.Tensor,
+                  x: torch.Tensor, dy: torch.Tensor):
+    """The vector-Jacobian product of :func:`ssd_intra_ref`: the gradients
+    (dC, dB, d(da), dx) of ``Σ dy · y`` at (c_mat, b_mat, da, x).
+
+    With D = tril(exp(cs_l - cs_s)), S = C Bᵀ and M = S ∘ D (y = M x):
+    dM = dy xᵀ, dx = Mᵀ dy, dS = Σ_h dM ∘ D, dC = dS B, dB = dSᵀ C; the
+    decay's exponent cs_l - cs_s takes E = dM ∘ M, so d(cs) is E's row sums
+    less its column sums, and d(da) the reverse cumulative sum of d(cs).
+    """
+    decay = _ssd_decay(da)                                 # (G, H, lc, lc)
+    scores = torch.einsum("gln,gsn->gls", c_mat, b_mat)    # (G, lc, lc)
+    m = scores[:, None] * decay                            # (G, H, lc, lc)
+    d_m = dy @ x.transpose(-1, -2)                         # (G, H, lc, lc)
+    dx = m.transpose(-1, -2) @ dy
+    d_s = torch.einsum("ghls,ghls->gls", d_m, decay)
+    dc = d_s @ b_mat
+    db = d_s.transpose(-1, -2) @ c_mat
+    del decay
+    e = d_m.mul_(m)                                        # zero above
+    d_cs = e.sum(dim=-1) - e.sum(dim=-2)                   # (G, H, lc)
+    dda = torch.flip(torch.cumsum(torch.flip(d_cs, (-1,)), dim=-1), (-1,))
+    return dc, db, dda, dx

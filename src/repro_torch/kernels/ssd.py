@@ -12,6 +12,14 @@ model's ``(B, S, H, P)`` layout, which it reads back without a copy.
 
 ``launches`` counts the kernel launches of this process (reset it to 0 to
 count a window).
+
+:func:`ssd_intra_autograd` gives the kernel a gradient for training
+(:class:`SsdIntraFunction`): the forward launches the kernel, the backward
+is the plain PyTorch VJP ``kernels.ref.ssd_intra_vjp``. The backward is
+not a kernel because the TPU kernel has none to port: the JAX package
+trains through the jnp einsum, not through its Pallas kernel
+(``repro/models/ssm.py`` sets ``USE_PALLAS_INTRA = False`` and
+differentiates the einsum chain of ``ssd_chunked``).
 """
 
 from __future__ import annotations
@@ -22,10 +30,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
-__all__ = ["ssd_intra", "ssd_intra_with", "bind", "kernel_strides",
-           "launches"]
+__all__ = ["ssd_intra", "ssd_intra_with", "ssd_intra_autograd",
+           "SsdIntraFunction", "bind", "kernel_strides", "launches"]
 
 launches = 0
 
@@ -123,3 +131,29 @@ def ssd_intra_with(lib, c_mat: torch.Tensor, b_mat: torch.Tensor,
         raise RuntimeError(f"ssd_intra launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+class SsdIntraFunction(torch.autograd.Function):
+    """Kernel 6 with a gradient: ``apply(c_mat, b_mat, da, x, forward)``
+    runs ``forward`` (the CUDA wrapper :func:`ssd_intra` on the card; the
+    CPU tests inject the plain version) and differentiates with
+    ``ref.ssd_intra_vjp`` in plain PyTorch. Under ``torch.no_grad()`` it
+    saves nothing and costs nothing beyond the forward."""
+
+    @staticmethod
+    def forward(ctx, c_mat, b_mat, da, x, forward):
+        ctx.save_for_backward(c_mat, b_mat, da, x)
+        return forward(c_mat, b_mat, da, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        return (*ref.ssd_intra_vjp(*ctx.saved_tensors, dy), None)
+
+
+def ssd_intra_autograd(c_mat: torch.Tensor, b_mat: torch.Tensor,
+                       da: torch.Tensor, x: torch.Tensor,
+                       forward=None) -> torch.Tensor:
+    """:func:`ssd_intra` (or ``forward``) differentiable in all four
+    inputs."""
+    return SsdIntraFunction.apply(c_mat, b_mat, da, x, forward or ssd_intra)

@@ -1,12 +1,14 @@
 """Attention blocks: GQA/MQA (+ sliding window, M-RoPE) and MLA (DeepSeek-V2).
 
-The port of ``repro.models.attention``. Two modes per variant:
+The port of ``repro.models.attention``. Three modes per variant:
+  * ``forward`` — full-sequence causal, no cache (``gqa_train`` /
+    ``mla_train``: training, differentiable).
   * ``prefill`` — full-sequence causal, returns the populated KV cache.
   * ``decode``  — one new token against a cache (ring buffer for windowed
     layers, full buffer otherwise), written into the caller's cache in
     place (the reference returns an updated copy).
 
-Prefill attention is **query-chunked** (a loop over blocks of ``Q_CHUNK``
+Full-sequence attention is **query-chunked** (a loop over blocks of ``Q_CHUNK``
 queries) so the (S × S) score matrix never materializes — peak scores are
 (chunk × S): llama3-8b's prefill at 8 × 2,048 tokens would otherwise hold
 (8, 32, 2,048, 2,048) f32 = 4.3 GB per layer. Decode for MLA uses the
@@ -139,13 +141,25 @@ class GQA(nn.Module):
             k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _full(self, x: torch.Tensor, positions: torch.Tensor, window: int,
+              positions_3d: Optional[torch.Tensor]):
+        """Full-sequence attention → (y, k, v)."""
+        q, k, v = self._qkv(x, positions, positions_3d)
+        out = _attend(q, k, v, positions, positions, window)
+        return self.wo(out.reshape(*x.shape[:2], -1)), k, v
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                window: int = 0,
+                positions_3d: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention, no cache (the reference's
+        ``gqa_train``)."""
+        return self._full(x, positions, window, positions_3d)[0]
+
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, buf_len: int,
                 window: int = 0, positions_3d: Optional[torch.Tensor] = None):
         """Full-seq attention + cache population. Returns (y, cache)."""
-        b, s, _ = x.shape
-        q, k, v = self._qkv(x, positions, positions_3d)
-        out = _attend(q, k, v, positions, positions, window)
-        y = self.wo(out.reshape(b, s, -1))
+        s = x.shape[1]
+        y, k, v = self._full(x, positions, window, positions_3d)
         if buf_len >= s:
             ck = F.pad(k, (0, 0, 0, 0, 0, buf_len - s))
             cv = F.pad(v, (0, 0, 0, 0, 0, buf_len - s))
@@ -241,13 +255,22 @@ class MLA(nn.Module):
         k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
         return q_full, k_full, v, latent, k_rope[:, :, 0, :]
 
-    def prefill(self, x: torch.Tensor, positions: torch.Tensor, buf_len: int,
-                window: int = 0):
-        b, s, _ = x.shape
+    def _full(self, x: torch.Tensor, positions: torch.Tensor, window: int):
+        """Full-sequence attention → (y, latent, k_rope)."""
         q, k, v, latent, k_rope = self._qkv_full(x, positions)
         out = _attend(q, k, v, positions, positions, window)
-        y = self.wo(out.reshape(b, s, -1))
-        pad = buf_len - s
+        return self.wo(out.reshape(*x.shape[:2], -1)), latent, k_rope
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                window: int = 0) -> torch.Tensor:
+        """Full-sequence attention, no cache (the reference's
+        ``mla_train``)."""
+        return self._full(x, positions, window)[0]
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, buf_len: int,
+                window: int = 0):
+        y, latent, k_rope = self._full(x, positions, window)
+        pad = buf_len - x.shape[1]
         return y, {"latent": F.pad(latent, (0, 0, 0, pad)).to(x.dtype),
                    "k_rope": F.pad(k_rope, (0, 0, 0, pad)).to(x.dtype)}
 

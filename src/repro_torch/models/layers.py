@@ -1,12 +1,12 @@
 """Shared layers of the port's language models: RMSNorm, Linear, SwiGLU MLP,
-Embedding, RoPE (+M-RoPE).
+Embedding, RoPE (+M-RoPE), and the LM loss.
 
 Counterparts of ``repro.models.layers``. Weights keep the JAX package's
 layout: a :class:`Linear` stores ``w`` as ``(d_in, d_out)`` and computes
 ``x @ w``, so a reference parameter tree loads without transposes. Each
 module's ``reset_parameters(generator)`` draws the reference's distribution
 in place from an explicit :class:`torch.Generator` on the parameter's
-device. The loss comes with training (``ROADMAP.md``).
+device.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["RMSNorm", "Linear", "MLP", "Embedding", "rope_frequencies",
-           "apply_rope", "apply_mrope"]
+           "apply_rope", "apply_mrope", "cross_entropy_loss"]
 
 
 class RMSNorm(nn.Module):
@@ -138,3 +138,17 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     return _rotate(x.to(torch.float32), cos, sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- Loss
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -100) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels == ignore_id are masked."""
+    logits = logits.to(torch.float32)
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

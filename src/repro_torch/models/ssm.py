@@ -2,7 +2,8 @@
 
 The port of ``repro.models.ssm``. The selective SSM is computed chunk-wise —
 a quadratic *intra-chunk* term (kernel 6, ``kernels.ops.ssd_intra``: the
-CUDA kernel for tensors on the card, its plain version for CPU tensors) plus
+CUDA kernel for tensors on the card, differentiable through
+``kernels.ssd.SsdIntraFunction``; its plain version for CPU tensors) plus
 a linear *inter-chunk* recurrence over per-chunk states, here a Python loop
 over chunks. Per-token decode keeps the recurrent state ``(B, H, P, N)``.
 
@@ -179,9 +180,15 @@ class Mamba2Mixer(nn.Module):
         y = self.norm(y * F.silu(z))
         return self.out_proj(y), state, xbc
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                init_state: Optional[torch.Tensor] = None):
         """Full-sequence mixer (the reference's ``mamba2_train``).
-        x: (B, S, d_model) → (out (B, S, d_model), final state (B, H, P, N))."""
+        x: (B, S, d_model) → (out (B, S, d_model), final state (B, H, P, N)).
+
+        ``init_state`` is taken and not used, as in the reference (whose
+        ``mamba2_train`` never passes it to ``ssd_chunked``): the scan
+        starts from zeros."""
+        del init_state
         out, state, _ = self._mix(x)
         return out, state
 

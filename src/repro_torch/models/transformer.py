@@ -17,9 +17,11 @@ leading axis and runs ``lax.scan``; here each stack is an
                                     weights once in ``state_dict()``) and a
                                     Mamba2 tail.
 
-Entry points: :meth:`DecoderLM.prefill` (populate caches, last-token
-logits) and :meth:`DecoderLM.decode_step` (one token, caches updated in
-place). ``forward_train`` comes with training (``ROADMAP.md``).
+Entry points: :meth:`DecoderLM.forward_train` (full-sequence logits and
+the MoE aux loss, differentiable, each block — and each unit — under
+activation checkpointing), :meth:`DecoderLM.prefill` (populate caches,
+last-token logits) and :meth:`DecoderLM.decode_step` (one token, caches
+updated in place).
 
 Caches keep the reference's layout and key names, stacked over layers:
 ``{"blocks": ...}`` for the uniform stack, ``{"units": {"local",
@@ -36,6 +38,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -44,7 +47,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 __all__ = ["Block", "DecoderLM", "init_params", "from_jax_params",
-           "make_positions", "vlm_positions_3d"]
+           "from_jax_opt_state", "make_positions", "vlm_positions_3d"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -92,6 +95,23 @@ class Block(nn.Module):
             y, aux = self.ffn(h2)
             return x + y, aux
         return x + self.ffn(h2), torch.zeros((), device=x.device)
+
+    def block_train(self, x: torch.Tensor, positions: torch.Tensor, *,
+                    window: int = 0,
+                    positions_3d: Optional[torch.Tensor] = None):
+        """x: (B, S, d) → (y, aux loss). Full-sequence, no cache."""
+        h = self.norm1(x)
+        if self.kind == "mamba":
+            mixed, _ = self.mixer(h)
+            x = x + mixed
+            if hasattr(self, "ffn"):
+                x = x + self.ffn(self.norm2(x))
+            return x, torch.zeros((), device=x.device)
+        if self.kind == "mla":
+            y = self.attn(h, positions, window)
+        else:
+            y = self.attn(h, positions, window, positions_3d)
+        return self._ffn(x + y)
 
     def block_prefill(self, x: torch.Tensor, positions: torch.Tensor,
                       buf_len: int, *, window: int = 0,
@@ -354,6 +374,70 @@ class DecoderLM(nn.Module):
 
     # -------------------------------------------------------- entry points
 
+    def forward_train(self, tokens: torch.Tensor, *,
+                      embeds: Optional[torch.Tensor] = None,
+                      remat: bool = True):
+        """Full-sequence forward → (logits, aux loss), differentiable.
+
+        tokens: (B, S) ids, (B, K, S) for audio; ``embeds`` (B, P, d)
+        patch embeddings for the VLM. Logits are (B, S, V) ((B, S, K, V)
+        for audio; the VLM's cover the P patch positions too). With
+        ``remat`` every block runs under ``torch.utils.checkpoint`` (its
+        activations recomputed in the backward), and so does every unit of
+        the local:global and hybrid schedules, where the reference
+        checkpoints the unit's body too.
+        """
+        cfg = self.cfg
+        x = self._embed_inputs(tokens, embeds)
+        b, s = x.shape[:2]
+        positions = make_positions(b, s, x.device)
+        pos3 = (vlm_positions_3d(b, s, cfg.vlm_num_patches, x.device)
+                if cfg.mrope else None)
+        window = _window_for(cfg)
+        sched = _schedule(cfg)
+
+        def remat_call(fn, *args, **kwargs):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+            return fn(*args, **kwargs)
+
+        def stack(blocks, x, *, window=0):
+            aux = torch.zeros((), device=x.device)
+            for blk in blocks:
+                x, a = remat_call(blk.block_train, x, positions,
+                                  window=window, positions_3d=pos3)
+                aux = aux + a
+            return x, aux
+
+        if sched[0] == "uniform":
+            x, aux = stack(self.blocks, x, window=window)
+        else:
+            if sched[0] == "local_global":
+                tail_window = cfg.sliding_window
+
+                def unit_body(unit, x):
+                    y, a1 = stack(unit["local"], x, window=tail_window)
+                    y, a2 = unit["global"].block_train(y, positions,
+                                                       positions_3d=pos3)
+                    return y, a1 + a2
+            else:  # hybrid: E Mamba2 blocks, then the one shared block
+                tail_window = 0
+
+                def unit_body(unit, x):
+                    y, a1 = stack(unit, x)
+                    y, a2 = self.shared_attn.block_train(y, positions)
+                    return y, a1 + a2
+            aux = torch.zeros((), device=x.device)
+            for unit in self.units:
+                x, a = remat_call(unit_body, unit, x)
+                aux = aux + a
+            if hasattr(self, "tail"):
+                x, a = stack(self.tail, x, window=tail_window)
+                aux = aux + a
+
+        x = self.final_norm(x)
+        return self._lm_logits(x), aux
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, buf_len: Optional[int] = None,
                 embeds: Optional[torch.Tensor] = None):
@@ -452,12 +536,19 @@ def _reset_children(mod: nn.Module, generator: torch.Generator) -> None:
             child.reset_parameters(generator)
 
 
+def _resolve_device(device) -> torch.device:
+    # serve.engine imports this module, hence the import here.
+    from repro_torch.serve.engine import resolve_device
+    return resolve_device(device)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> DecoderLM:
-    """A model with random weights drawn on ``device`` (default the CPU)
-    from ``torch.Generator(device).manual_seed(seed)``: full-size weights
-    are drawn on the card itself, never staged through host memory. The
-    CPU's and the card's generators give different numbers."""
-    dev = torch.device("cpu" if device is None else device)
+    """A model with random weights drawn on ``device`` (default the card;
+    raises without CUDA) from ``torch.Generator(device).manual_seed(seed)``:
+    full-size weights are drawn on the card itself, never staged through
+    host memory. The CPU's and the card's generators give different
+    numbers."""
+    dev = _resolve_device(device)
     with torch.device(dev):
         model = DecoderLM(cfg)
     gen = torch.Generator(device=dev)
@@ -510,13 +601,37 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
     and ``units`` on a unit axis (and, inside a unit, a layer axis for the
     local and Mamba2 stacks). Weights keep their layout (``Linear.w`` is
     ``(d_in, d_out)`` in both packages), so loading unstacks the layers and
-    renames nothing.
+    renames nothing. The model lands on ``device`` (default the card;
+    raises without CUDA).
     """
-    hybrid = _schedule(cfg)[0] == "hybrid"
-    state = {key: torch.tensor(val)
-             for name, arr in _flatten(tree)
-             for key, val in _unstack(name, arr, hybrid)}
+    dev = _resolve_device(device)
     with torch.device("meta"):
         model = DecoderLM(cfg)
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.to(device) if device is not None else model
+    model.load_state_dict(_state_from_jax(tree, cfg), strict=True,
+                          assign=True)
+    return model.to(dev)
+
+
+def _state_from_jax(tree: Mapping[str, Any],
+                    cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """A reference tree as ``state_dict`` names → tensors."""
+    hybrid = _schedule(cfg)[0] == "hybrid"
+    return {key: torch.tensor(val)
+            for name, arr in _flatten(tree)
+            for key, val in _unstack(name, arr, hybrid)}
+
+
+def from_jax_opt_state(state: Mapping[str, Any], cfg: ArchConfig,
+                       device=None) -> Dict[str, Any]:
+    """The reference's AdamW state (``{"step", "m", "v"}``, the moments
+    shaped as the parameter tree, as numpy) as the port's: ``step`` an
+    int32 scalar and the moments keyed by ``state_dict`` name, as
+    ``optim.adamw_init`` lays them out for ``dict(model.named_parameters())``
+    (the shared block of the hybrid schedule once). On ``device`` (default
+    the card; raises without CUDA)."""
+    dev = _resolve_device(device)
+    return {"step": torch.tensor(np.asarray(state["step"]),
+                                 dtype=torch.int32, device=dev),
+            **{part: {k: v.to(dev) for k, v in
+                      _state_from_jax(state[part], cfg).items()}
+               for part in ("m", "v")}}

@@ -40,11 +40,12 @@ class ServeConfig:
 
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller names another device; raises when the
-    device is CUDA and CUDA is not available."""
+    device is CUDA and CUDA is not available. The port's model, serving and
+    training entry points all resolve their device here."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("the engine runs on the CUDA card by default "
+            raise RuntimeError("the port runs on the CUDA card by default "
                                "and CUDA is not available; pass device='cpu' "
                                "to run it on the CPU")
         if dev.index is None:

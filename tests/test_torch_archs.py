@@ -221,7 +221,7 @@ def test_zamba2_shared_block_is_one_module():
     ``state_dict()``, and prefill and decode apply that one module at each
     unit."""
     cfg = get_config("zamba2-7b").reduced(num_layers=13)
-    model = T.init_params(cfg, seed=0)
+    model = T.init_params(cfg, seed=0, device="cpu")
     sd = model.state_dict()
     shared = [k for k in sd if "attn." in k]
     assert shared and all(k.startswith("shared_attn.") for k in shared)

@@ -15,7 +15,11 @@ order), as ``chip_smoke.py`` states; SSD intra-chunk ``rtol=1e-4`` and
 cumulative sums taken in another order than the plain version's einsums.
 Reduced language models on the card against the CPU: ``rtol = atol =
 1e-4`` on prefill logits and caches (f32 products in another order, a few
-ulps each through two layers), greedy tokens equal.
+ulps each through two layers), greedy tokens equal. Kernel 6's gradient
+(``ssd.SsdIntraFunction``) against plain autograd on the card, and a
+reduced train step's gradients against the CPU's: ``rtol = 1e-4``, ``atol
+= 1e-4 ·`` each gradient's largest magnitude (reordered f32 sums through a
+forward and a backward).
 """
 
 import copy
@@ -36,6 +40,8 @@ from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train import make_train_step  # noqa: E402
 
 ADC_RTOL = 1e-5
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
@@ -463,7 +469,7 @@ def test_reduced_lm_on_card_equals_cpu(cuda, name):
     engine at kv_bits 0 and 8; zamba2's Mamba2 blocks launch kernel 6."""
     cfg = get_config(name).reduced(
         **({"num_layers": 7} if name == "zamba2-7b" else {}))
-    model = T.init_params(cfg, seed=0)
+    model = T.init_params(cfg, seed=0, device="cpu")
     model_c = copy.deepcopy(model).to(cuda)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24),
                                                 dtype=np.int32)
@@ -482,3 +488,72 @@ def test_reduced_lm_on_card_equals_cpu(cuda, name):
         out = Engine(cfg, model, sc, device="cpu").generate(prompts)
         out_c = Engine(cfg, model_c, sc).generate(prompts)
         np.testing.assert_array_equal(out_c, out)
+
+
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-4
+
+
+@pytest.mark.parametrize("g,h,lc,n,p", [(4, 32, 256, 128, 64),
+                                         (2, 112, 256, 64, 64),
+                                         (3, 5, 200, 24, 64)])
+def test_ssd_intra_function_grads_equal_plain_autograd(cuda, g, h, lc, n, p):
+    """Kernel 6 through its autograd Function on the model's strided
+    views: the forward launches the kernel, and the gradients reaching the
+    conv stream, da and x equal plain autograd of the plain version."""
+    rng = np.random.default_rng(lc + h + 1)
+    d_inner = h * p
+
+    def leaf(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda).requires_grad_()
+
+    conv = leaf(rng.normal(size=(g, lc, d_inner + 2 * n)))
+    da_l = leaf(-rng.exponential(size=(g, lc, h)))
+    x_l = leaf(rng.normal(size=(g, lc, h, p)))
+    dy = torch.from_numpy(rng.normal(size=(g, h, lc, p)).astype(np.float32)
+                          ).to(cuda)
+
+    def views():
+        return (conv[..., d_inner + n:], conv[..., d_inner:d_inner + n],
+                da_l.transpose(1, 2), x_l.transpose(1, 2))
+
+    before = ssd.launches
+    got = torch.autograd.grad(ops.ssd_intra(*views()), (conv, da_l, x_l), dy)
+    assert ssd.launches == before + 1
+    want = torch.autograd.grad(ref.ssd_intra_ref(*views()),
+                               (conv, da_l, x_l), dy)
+    for name, gt, w in zip(("conv", "da", "x"), got, want):
+        assert torch.isfinite(gt).all()
+        torch.testing.assert_close(
+            gt, w, rtol=GRAD_RTOL,
+            atol=GRAD_ATOL_SCALE * float(w.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-7b", "llama3-8b"])
+def test_reduced_train_step_on_card_equals_cpu(cuda, name):
+    """One train step from the same weights and batch: loss and every
+    gradient; the Mamba2 blocks launch kernel 6 in the forward and in the
+    recompute."""
+    cfg = get_config(name).reduced(
+        **({"num_layers": 7} if name == "zamba2-7b" else {}))
+    model = T.init_params(cfg, seed=0, device="cpu")
+    model_c = copy.deepcopy(model).to(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)))
+    step = make_train_step(cfg, AdamWConfig())
+    m = step(model, adamw_init(dict(model.named_parameters()), AdamWConfig()),
+             {"tokens": tokens})
+    before = ssd.launches
+    m_c = step(model_c, adamw_init(dict(model_c.named_parameters()),
+                                   AdamWConfig()), {"tokens": tokens.to(cuda)})
+    launches = ssd.launches - before
+    if name == "mamba2-370m":
+        assert launches == 2 * cfg.num_layers
+    else:
+        assert (launches > 0) == (name == "zamba2-7b")
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_c[key].cpu(), m[key], rtol=1e-4,
+                                   atol=1e-4)
+    for (key, p), p_c in zip(model.named_parameters(), model_c.parameters()):
+        torch.testing.assert_close(
+            p_c.grad.cpu(), p.grad, rtol=GRAD_RTOL,
+            atol=GRAD_ATOL_SCALE * float(p.grad.abs().max()), msg=key)

@@ -7,7 +7,9 @@
   statement;
 * entry points default to the card: without CUDA the torch search
   backend, the serverless runtime and the service's serverless route, the
-  LM ``Engine`` and ``python -m repro_torch.launch.serve`` raise (naming
+  LM ``Engine``, the model constructors (``init_params``,
+  ``from_jax_params``, ``from_jax_opt_state``), ``python -m
+  repro_torch.launch.serve`` and ``python -m repro_torch.launch.train`` raise (naming
   ``device="cpu"``) instead of running on the CPU, a QP worker bound to the
   card raises instead of moving to the CPU, a process pool or socket fleet
   of CUDA workers refuses ``fork``, and the kernel wrappers refuse CPU
@@ -30,6 +32,7 @@ from repro_torch.core import pipeline, segments  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import adc_lookup, bitpack, build, hamming, ops, ref, ssd  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import Engine, ServiceConfig, VectorSearchService  # noqa: E402
 from repro_torch.serverless import RuntimeConfig, ServerlessRuntime  # noqa: E402
@@ -79,7 +82,7 @@ def test_port_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52      # every module of all slices
+    assert int(out.stdout.strip()) >= 61      # every module of all slices
 
 
 # The modules of the live index and the serverless runtime, at the
@@ -107,6 +110,13 @@ def _stands_beside_its_reference(rel):
     assert "jax" not in roots and "repro" not in roots, roots
 
 
+# The modules of training, at the reference's paths.
+SLICE8_MODULES = [
+    "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+    "train/__init__.py", "train/steps.py", "checkpoint/__init__.py",
+    "checkpoint/store.py", "launch/train.py"]
+
+
 @pytest.mark.parametrize("rel", SLICE5_MODULES)
 def test_slice5_module_stands_beside_its_reference(rel):
     _stands_beside_its_reference(rel)
@@ -114,6 +124,11 @@ def test_slice5_module_stands_beside_its_reference(rel):
 
 @pytest.mark.parametrize("rel", SLICE6_MODULES)
 def test_slice6_module_stands_beside_its_reference(rel):
+    _stands_beside_its_reference(rel)
+
+
+@pytest.mark.parametrize("rel", SLICE8_MODULES)
+def test_slice8_module_stands_beside_its_reference(rel):
     _stands_beside_its_reference(rel)
 
 
@@ -208,10 +223,32 @@ def test_cuda_workers_refuse_fork_and_never_fall_back(monkeypatch):
 def test_engine_defaults_to_card_and_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("mamba2-370m").reduced(num_layers=1)
-    model = transformer.init_params(cfg)
+    model = transformer.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, model)
     assert Engine(cfg, model, device="cpu").device == torch.device("cpu")
+
+
+def test_model_constructors_default_to_card_and_raise_without_cuda(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("mamba2-370m").reduced(num_layers=1)
+    tree = {k: v.numpy() for k, v in
+            transformer.init_params(cfg, device="cpu").state_dict().items()}
+    nested = {"embed": {"table": tree["embed.table"]}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.from_jax_params(nested, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.from_jax_opt_state({"step": 0, "m": nested,
+                                        "v": nested}, cfg)
+
+
+def test_launch_train_defaults_to_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "mamba2-370m", "--reduced"])
 
 
 def test_launch_serve_defaults_to_card_and_raises_without_cuda(monkeypatch):
@@ -221,7 +258,8 @@ def test_launch_serve_defaults_to_card_and_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("call", ["hamming", "adc_batch", "adc_table",
-                                  "adc_direct", "ssd_intra", "extract_codes"])
+                                  "adc_direct", "ssd_intra", "ssd_intra_grad",
+                                  "extract_codes"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: no quiet CPU fallback."""
     words = torch.zeros((1, 1, 4), dtype=torch.int32)
@@ -240,6 +278,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
         elif call == "ssd_intra":
             ssd.ssd_intra(torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)),
                           torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8, 4)))
+        elif call == "ssd_intra_grad":
+            ssd.ssd_intra_autograd(
+                torch.zeros((1, 8, 4), requires_grad=True),
+                torch.zeros((1, 8, 4)), torch.zeros((1, 2, 8)),
+                torch.zeros((1, 2, 8, 4)))
         elif call == "extract_codes":
             bitpack.extract_codes(torch.zeros((3, 2), dtype=torch.uint8),
                                   segments.build_layout([4, 4, 8]))

@@ -144,7 +144,7 @@ def test_quantize_caches_keeps_integer_leaves():
 def test_cache_bytes_of_a_model_layout():
     """The packed llama3 layout: the buffer axis shrinks by 32 / bits."""
     cfg = get_config("llama3-8b").reduced()
-    caches = T.init_params(cfg).init_decode_caches(2, 32)
+    caches = T.init_params(cfg, device="cpu").init_decode_caches(2, 32)
     fp = kv.cache_bytes(caches)
     assert fp == 2 * cfg.num_layers * 2 * 32 * cfg.num_kv_heads * 64 * 4
     for bits in (4, 8, 16):

@@ -178,7 +178,7 @@ def test_engine_refuses_kv_bits_and_a_model_on_another_device(model, cfg):
 
 
 def test_init_params_draws_the_reference_distributions(cfg):
-    model = T.init_params(cfg, seed=0)
+    model = T.init_params(cfg, seed=0, device="cpu")
     mixer = model.blocks[0].mixer
     h = mixer.A_log.shape[0]
     np.testing.assert_allclose(mixer.A_log.detach().numpy(),
@@ -188,7 +188,7 @@ def test_init_params_draws_the_reference_distributions(cfg):
     std = float(mixer.in_xbc.w.detach().std())
     assert abs(std - cfg.d_model ** -0.5) < 0.05 * cfg.d_model ** -0.5
     assert abs(float(model.embed.table.detach().std()) - 0.02) < 0.002
-    again = T.init_params(cfg, seed=0)
+    again = T.init_params(cfg, seed=0, device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(model.state_dict().values(), again.state_dict().values()))
 

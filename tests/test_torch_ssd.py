@@ -10,7 +10,11 @@ package's, on the CPU.
 * the strided views ``ssd_chunked`` hands to ``ops.ssd_intra`` (B and C
   slices of one conv stream, da and x with the heads innermost): the plain
   version on them against the Pallas kernel on contiguous copies, and
-  ``kernels.ssd.kernel_strides`` on them.
+  ``kernels.ssd.kernel_strides`` on them;
+* kernel 6's gradient (``ssd.SsdIntraFunction``, the plain forward
+  injected): its backward ``ref.ssd_intra_vjp`` against ``jax.vjp`` of the
+  reference's ``ssd_intra_ref``, and the whole scan's gradients through it
+  against plain autograd (tolerances at the tests).
 
 Tolerances: for the intra-chunk block ``rtol = 1e-5`` and ``atol = 4e-6 ·
 max |y|`` — float32 sums of up to lc · N products taken in another order,
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
@@ -169,3 +174,69 @@ def test_kernel_strides_refuse_non_unit_last_stride(monkeypatch, which):
     named[which] = torch.empty(t.shape[:-1] + (2 * t.shape[-1],))[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         ssd.kernel_strides(**named)
+
+
+# ------------------------------------------------ the gradient of kernel 6
+#
+# On the card ``ops.ssd_intra`` runs ``ssd.SsdIntraFunction``: the kernel
+# forward, the plain VJP ``ref.ssd_intra_vjp`` backward. Here the Function
+# runs with the plain forward injected. Gradient tolerance: rtol 1e-5 and
+# atol 1e-5 · the gradient's largest magnitude — float32 sums of up to
+# lc · max(N, P) products in another order than jax's, and d(da) a reverse
+# cumulative sum of row-less-column sums that cancel.
+
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-5, 1e-5
+
+
+@pytest.mark.parametrize("g,h,lc,n,p", SHAPES)
+def test_ssd_intra_function_backward_matches_jax_vjp(g, h, lc, n, p):
+    arrays = _intra_inputs(g, h, lc, n, p)
+    dy = np.random.default_rng(7).normal(size=(g, h, lc, p)).astype(
+        np.float32)
+    _, vjp = jax.vjp(jax_ref.ssd_intra_ref, *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(dy))
+    inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y = ssd.ssd_intra_autograd(*inputs, forward=ref.ssd_intra_ref)
+    got = torch.autograd.grad(y, inputs, torch.from_numpy(dy))
+    for name, gt, w in zip(("dC", "dB", "d(da)", "dx"), got, want):
+        w = np.asarray(w)
+        assert gt.shape == w.shape and gt.dtype == torch.float32
+        np.testing.assert_allclose(gt.numpy(), w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_SCALE * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_ssd_intra_function_saves_nothing_under_no_grad():
+    tensors = [torch.from_numpy(a).requires_grad_()
+               for a in _intra_inputs(2, 3, 8, 4, 4)]
+    with torch.no_grad():
+        y = ssd.ssd_intra_autograd(*tensors, forward=ref.ssd_intra_ref)
+    assert y.grad_fn is None and not y.requires_grad
+    assert torch.equal(y, ref.ssd_intra_ref(*tensors).detach())
+
+
+@pytest.mark.parametrize("s,lc", [(48, 16), (37, 16)])
+def test_ssd_chunked_grads_through_the_function(monkeypatch, s, lc):
+    """The whole scan's gradients with the intra-chunk term through the
+    Function on the strided views ``ssd_chunked`` passes (as on the card)
+    equal plain autograd's."""
+    bsz, h, p, n = 2, 3, 8, 16
+    arrays = _scan_inputs(s + lc, bsz, s, h, p, n)
+    dy = np.random.default_rng(3).normal(size=(bsz, s, h, p)).astype(
+        np.float32)
+
+    def grads():
+        inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        y, state = ssm.ssd_chunked(*inputs, lc)
+        loss = (y * torch.from_numpy(dy)).sum() + state.square().sum()
+        return torch.autograd.grad(loss, inputs)
+
+    want = grads()
+    plain = ops.ssd_intra
+    monkeypatch.setattr(ops, "ssd_intra", lambda *a: ssd.ssd_intra_autograd(
+        *a, forward=plain))
+    got = grads()
+    for name, gt, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        torch.testing.assert_close(
+            gt, w, rtol=GRAD_RTOL,
+            atol=GRAD_ATOL_SCALE * float(w.abs().max()), msg=name)
