@@ -79,6 +79,34 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   parameters), the same one-step card-vs-CPU check at 1 × 512 tokens, then
   4 timed steps at 4 × 2,048 (step ms, tokens/s, peak memory): GQA, RoPE
   and the MLP backward at full width.
+* Sharded check: the sharded LM path (``launch.shardings`` on a
+  ``torch.distributed`` DeviceMesh) on a 1 × 1 NCCL ("data", "model")
+  mesh, against the plain one on the card: mamba2-370m at full size, one
+  train step from the same weights at 2 × 512 tokens on the sharded model,
+  AdamW state and batch (loss, ce and grad norm within 5e-3 relative,
+  every gradient within 2e-2 of its largest magnitude, updates within 2 ·
+  lr; kernel 6 launched through ``local_map`` twice per layer); then
+  llama3-8b at full width and 2 layers: a sharded prefill of 1 × 512 and
+  8 greedy decode steps on caches placed by ``cache_shardings(profile=
+  "seq")``: logits within 5e-3 of their largest magnitude, greedy tokens
+  equal. Whether each comparison was bitwise is reported.
+* Sharded train run: ``launch/train.train`` with that mesh, mamba2-370m at
+  full size, 2 steps of 16 × 4,096 tokens in two micro-batches: step ms,
+  tokens/s, peak memory and kernel 6's launches beside the train run's
+  (the gap is DTensor's host dispatch).
+* RAG: ``examples/rag_serving_torch.py``'s flow at full size:
+  phi4-mini-3.8b (weights drawn on the card) embeds 1,024 documents of 24
+  tokens, SQUASH indexes the d = 3,072 embeddings, the example's queries
+  search with ``backend="torch"`` (float64 ids and ``SearchStats`` equal
+  to the NumPy backend's; kernel 1 and the Stage 4 kernel the index's M+1
+  picks must launch, and the line names which), then the LM generates
+  from the retrieved prompts with the float and the 8-bit KV cache
+  (greedy tokens agree on at least 0.75).
+* Dry run: ``python -m repro_torch.launch.dryrun`` for llama3-8b ×
+  train_4k and mamba2-370m × decode_32k on a fake 16 × 16 process group,
+  two processes on the host started after the build and collected at the
+  end (no card): FLOPs, per-rank state bytes, collective bytes, and the
+  roofline terms as H100 spec arithmetic.
 * Path A (direct Stage 4, the default formulation): the SIFT1M-shaped
   synthetic dataset (1,000,000 × 128, 4 attributes of cardinality 16, the
   §5.1 predicates at ≈8 % joint selectivity), P=10, b=4d, S=8 and
@@ -101,7 +129,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   +inf exactly on the slots past each pair's keep, with Path A's keep and
   with whole and dead pairs put in, and the same for the table kernel with
   Path B's keep, in tables built in f64 and in f32, beside its dense (B, N,
-  d) form on the gathered codes; SSD intra-chunk rtol 1e-4, atol 1e-5 ·
+  d) form on the gathered codes; kernels 1, 2b and 2 also at d = 3,072,
+  an LM embedding's width, where kernel 2b's shared memory outgrew an
+  H100 block before its query rows were tiled over d (G = 96 words; M+1
+  = 257 in f32 and f64; M+1 = 33); SSD intra-chunk rtol 1e-4, atol 1e-5 ·
   max |y|: f32 sums of up to lc · N products in another order; held at
   mamba2-370m's serve shape and at zamba2-7b's, on the strided views
   ``ssm.ssd_chunked`` passes and on contiguous copies, with fast decay and
@@ -154,7 +185,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   compaction and restack seconds are reported.
 
 Launch counters are set to 0 just before each path (LM serve, each LM
-family's card prefill and generation, the train run, each search path, the extraction,
+family's card prefill and generation, the train run, the sharded train
+step and train run, the RAG search, each search path, the extraction,
 the serverless local run, each mesh search, the live phase) and read just
 after; every kernel must have launched on the path that runs it.
 Every
@@ -175,8 +207,10 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1681,7 +1715,8 @@ def train_run():
     """``launch/train.train``: mamba2-370m at full size, weights drawn on
     the card, 6 steps of 16 × 4,096 tokens in two micro-batches; then one
     steady step profiled, and a save / restore of the model and optimizer
-    state with one more step from each. Returns kernel 6's launches."""
+    state with one more step from each. Returns kernel 6's launches and
+    the report."""
     import tempfile
 
     import torch
@@ -1757,7 +1792,7 @@ def train_run():
     if rep["checkpoint"]["loss_live"] != rep["checkpoint"]["loss_restored"]:
         raise AssertionError("train_run: the step after restore differs from "
                              "the live step")
-    return launches
+    return launches, rep
 
 
 def train_llama3_width():
@@ -1808,6 +1843,360 @@ def train_llama3_width():
                              "with the CPU's beyond the tolerance")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("train_llama3_width: a loss is not finite")
+
+
+# ------------------------------------------- the sharded LM path, the RAG
+
+SHARDED_TRAIN_RUN = dict(TRAIN_RUN, steps=2)
+SHARDED_DECODE_STEPS = 8
+DRYRUN_PAIRS = (("llama3-8b", "train_4k"), ("mamba2-370m", "decode_32k"))
+RAG_ARCH = "phi4-mini-3.8b"
+RAG_DOCS, RAG_DOC_LEN = 1024, 24
+
+
+def nccl_group():
+    """A one-rank NCCL default process group on a free loopback port and a
+    1 × 1 ("data", "model") mesh of it on the card (``launch.mesh``).
+    The caller destroys the group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return make_host_mesh(model=1, device_type="cuda")
+
+
+def _full(x):
+    """A DTensor gathered whole (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def sharded_check():
+    """The sharded LM path on a 1 × 1 NCCL mesh, against the plain one on
+    the card: mamba2-370m at full size, one train step from the same
+    weights at ``TRAIN_CHECK_SHAPE`` plain and on the model, state and
+    batch ``launch.shardings`` placed (loss, ce and grad norm within
+    ``LM_TOL`` relative, each gradient within ``TRAIN_GRAD_TOL`` of its
+    largest magnitude, each updated parameter within 2 · lr; kernel 6
+    launched in the sharded step, through ``local_map``, twice per layer);
+    then llama3-8b at full width and 2 layers: a sharded prefill of 1 × 512
+    tokens and 8 greedy decode steps on caches placed by
+    ``cache_shardings(profile="seq")``, against the plain model: logits
+    within ``LM_TOL`` of their largest magnitude, greedy tokens equal.
+    Whether each comparison was bitwise is reported. Returns kernel 6's
+    launches in the sharded step."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    mesh = nccl_group()
+    out = {"phase": "sharded_check", "mesh": SH.mesh_axes(mesh),
+           "backend": dist.get_backend()}
+    try:
+        cfg = get_config(LM_ARCH)
+        plain = T.init_params(cfg, seed=0, device="cuda")
+        sharded = SH.shard_model(copy.deepcopy(plain), mesh)
+        batch = make_batch(cfg, *TRAIN_CHECK_SHAPE, 0, "cuda")
+        opt = AdamWConfig(lr=TRAIN_LR)
+        step = make_train_step(cfg, opt)
+        m_p = step(plain, adamw_init(dict(plain.named_parameters()), opt),
+                   batch)
+        state = SH.shard_opt_state(
+            adamw_init(dict(sharded.named_parameters()), opt), sharded, mesh)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_s = step(sharded, state, SH.shard_batch(batch, mesh))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["ssd_intra"]
+        train = {"arch": cfg.name, "batch": list(TRAIN_CHECK_SHAPE),
+                 "sharded_step_s": step_s, "ssd_intra_launches": launches}
+        ok = True
+        for key in ("loss", "ce", "grad_norm"):
+            a, b = float(m_p[key]), float(_full(m_s[key]))
+            train[key] = {"plain": a, "sharded": b,
+                          "rel_err": abs(b - a) / abs(a)}
+            ok = ok and math.isfinite(b) and abs(b - a) <= LM_TOL * abs(a)
+        worst, upd, bitwise = 0.0, 0.0, True
+        for (name, p), q in zip(plain.named_parameters(),
+                                sharded.parameters()):
+            g_s, p_s = _full(q.grad), _full(q.detach())
+            worst = max(worst, float((g_s - p.grad).abs().max())
+                        / (float(p.grad.abs().max()) or 1.0))
+            upd = max(upd, float((p_s - p.detach()).abs().max()))
+            bitwise = (bitwise and torch.equal(g_s, p.grad)
+                       and torch.equal(p_s, p.detach()))
+        ok = ok and worst <= TRAIN_GRAD_TOL and upd <= 2 * TRAIN_LR
+        train.update({"worst_grad_rel_err": worst,
+                      "updated_params_max_abs_diff": upd,
+                      "bitwise_grads_and_params": bitwise})
+        out["train"] = train
+        del plain, sharded, state, m_p, m_s
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            emit(out)
+            raise AssertionError("sharded_check: the sharded train step "
+                                 "disagrees with the plain one")
+        if launches != 2 * cfg.num_layers:
+            emit(out)
+            raise AssertionError(f"sharded_check: kernel 6 launched "
+                                 f"{launches} times in the sharded step, "
+                                 f"expected {2 * cfg.num_layers}")
+
+        full = get_config("llama3-8b")
+        cfg = dataclasses.replace(full, num_layers=2)
+        plain = T.init_params(cfg, seed=0, device="cuda")
+        sharded = SH.shard_model(copy.deepcopy(plain), mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT),
+                               device="cuda", generator=gen)
+        buf = FAMILY_PROMPT + SHARDED_DECODE_STEPS
+
+        def run(model, place_tokens, place_caches):
+            logits, caches = model.prefill(place_tokens(tokens), buf_len=buf)
+            caches = place_caches(caches)
+            seen, picked = [logits], []
+            for i in range(SHARDED_DECODE_STEPS):
+                tok = _full(logits[:, -1]).argmax(-1)[:, None]
+                picked.append(tok)
+                logits, caches = model.decode_step(place_tokens(tok), caches,
+                                                   FAMILY_PROMPT + i)
+                seen.append(logits)
+            return [_full(x) for x in seen], torch.cat(picked, dim=1)
+
+        def same(x):
+            return x
+
+        want, want_tok = run(plain, same, same)
+        t0 = time.perf_counter()
+        got, got_tok = run(
+            sharded, lambda t: SH.shard_batch({"t": t}, mesh)["t"],
+            lambda c: SH.shard_caches(c, mesh, profile="seq"))
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        err = max(float((g - w).abs().max()) / float(w.abs().max())
+                  for g, w in zip(got, want))
+        out["serve"] = {
+            "arch": full.name, "layers": cfg.num_layers,
+            "prompt": [1, FAMILY_PROMPT], "decode_steps": SHARDED_DECODE_STEPS,
+            "cache_profile": "seq", "sharded_s": serve_s,
+            "logits_rel_err": err,
+            "bitwise_logits": all(torch.equal(g, w)
+                                  for g, w in zip(got, want)),
+            "greedy_tokens_equal": bool(torch.equal(got_tok, want_tok))}
+        del plain, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["tolerance"] = (f"train: loss, ce, grad norm |s - p| <= {LM_TOL} |p|;"
+                        f" gradients <= {TRAIN_GRAD_TOL} of their max; "
+                        f"updates <= 2 lr; serve: logits <= {LM_TOL} of "
+                        "their max, greedy tokens equal")
+    emit(out)
+    if err > LM_TOL or not out["serve"]["greedy_tokens_equal"]:
+        raise AssertionError("sharded_check: the sharded prefill/decode "
+                             "disagrees with the plain model")
+    return launches
+
+
+def sharded_train_run(train_rep):
+    """``launch/train.train`` with a 1 × 1 NCCL mesh: mamba2-370m at full
+    size on the sharded model, state and batches, 2 steps of 16 × 4,096
+    tokens in two micro-batches; step ms, tokens/s, peak memory and kernel
+    6's launches beside ``train_run``'s (``train_rep``). The gap is
+    DTensor's host dispatch. Returns kernel 6's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config(LM_ARCH)
+    mesh = nccl_group()
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = launch_train.train(LM_ARCH, lr=TRAIN_LR, device="cuda", seed=0,
+                                 mesh=mesh, **SHARDED_TRAIN_RUN)
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["ssd_intra"]
+    finally:
+        dist.destroy_process_group()
+    rep.pop("model"), rep.pop("opt_state")
+    per_step = 2 * cfg.num_layers * SHARDED_TRAIN_RUN["accum"]
+    rep.update({"phase": "sharded_train_run", "total_s": total_s,
+                "ssd_intra_launches": launches,
+                "expected_launches_per_step": per_step,
+                "plain_train_run": {key: train_rep[key] for key in (
+                    "steady_step_ms", "tokens_per_s", "peak_device_gb",
+                    "first_step_s", "loss")}})
+    rep["steady_step_ms_over_plain"] = (rep["steady_step_ms"]
+                                        / train_rep["steady_step_ms"])
+    emit(rep)
+    if not all(math.isfinite(v) for v in rep["loss"] + rep["grad_norm"]):
+        raise AssertionError("sharded_train_run: a loss or grad norm is not "
+                             "finite")
+    if abs(rep["loss"][0] - train_rep["loss"][0]) > LM_TOL * abs(
+            train_rep["loss"][0]):
+        raise AssertionError("sharded_train_run: the first loss differs from "
+                             "train_run's")
+    if any(n != per_step for n in rep["ssd_intra_launches_per_step"]):
+        raise AssertionError(f"sharded_train_run: kernel 6 launched "
+                             f"{rep['ssd_intra_launches_per_step']} times per "
+                             f"step, expected {per_step}")
+    return launches
+
+
+def start_dryruns(out_dir):
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_PAIRS, one
+    process each, on the CPU (no card visible), writing JSON under
+    ``out_dir``. Returns {pair: (process, json path)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    procs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        path = os.path.join(out_dir, f"dryrun-{arch}-{shape}.json")
+        procs[arch, shape] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--json", path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            path)
+    return procs
+
+
+def collect_dryruns(procs):
+    """Wait for the dry runs and emit their results; fails if one failed."""
+    results, failed = [], []
+    for (arch, shape), (proc, path) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            failed.append(f"{arch} × {shape} (exit {proc.returncode}):\n"
+                          f"{log[-3000:]}")
+            continue
+        with open(path) as f:
+            res = json.load(f)
+        results.append(res)
+        if not res["flops"] > 0 or not res["memory"]["argument_bytes"] > 0:
+            failed.append(f"{arch} × {shape}: no FLOPs or no state counted")
+    emit({"phase": "dryrun", "roofline": "H100 spec arithmetic "
+          "(launch.mesh.HW), not measured", "pairs": results})
+    if failed:
+        raise AssertionError("dryrun failed: " + "\n".join(failed))
+
+
+def _example(name):
+    """A module of ``examples/`` by its file name."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rag_phase():
+    """``examples/rag_serving_torch.py``'s flow at full size: phi4-mini-3.8b
+    (weights drawn on the card from seed 0) embeds RAG_DOCS documents of 24
+    tokens, SQUASH indexes the d = 3,072 embeddings with the example's
+    attributes, the example's queries search with ``backend="torch"`` on
+    the card (float64 ids and ``SearchStats`` must equal the NumPy
+    backend's; kernel 1 and a Stage 4 kernel must launch), then the LM
+    generates from the retrieved prompts with the float and the 8-bit
+    OSQ-packed KV cache (greedy tokens agree on >= 0.75). Returns the
+    search's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dataplane
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    ex = _example("rag_serving_torch")
+    cfg = get_config(RAG_ARCH)
+    out = {"phase": "rag", "arch": cfg.name, "d_model": cfg.d_model,
+           "layers": cfg.num_layers, "docs": RAG_DOCS, "doc_len": RAG_DOC_LEN}
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out["init_card_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    docs = rng.integers(0, cfg.vocab_size, (RAG_DOCS, RAG_DOC_LEN),
+                        dtype=np.int32)
+    t0 = time.perf_counter()
+    embs = ex.embed_documents(model, torch.from_numpy(docs).cuda())
+    out["embed_s"] = time.perf_counter() - t0
+    if embs.shape != (RAG_DOCS, cfg.d_model) or not np.isfinite(embs).all():
+        raise AssertionError(f"rag: malformed embeddings {embs.shape}")
+    t0 = time.perf_counter()
+    index = ex.build(embs, rng)
+    out["index_build_s"] = time.perf_counter() - t0
+    m1 = max(pt.quant.boundaries.shape[0] for pt in index.parts)
+    out.update({"M+1": m1, "G": int(index.parts[0].low.packed.shape[1]),
+                "stage4": ("adc_batch" if m1 <= dataplane.ADC_TABLE_MAX_M1
+                           else "adc_direct")})
+    queries = ex.queries_for(embs, rng).astype(np.float64)
+    want = index.search(queries, ex.PREDICATES, k=ex.K, backend="numpy")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = with_dtype(torch.float64, lambda: index.search(
+        queries, ex.PREDICATES, k=ex.K, backend="torch"))
+    out["search_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    ids32 = with_dtype(torch.float32, lambda: index.search(
+        queries, ex.PREDICATES, k=ex.K, backend="torch"))[0]
+    out.update({"launches": counts,
+                "f64_ids_equal": bool(np.array_equal(got[0], want[0])),
+                "f64_stats_equal": got[2] == want[2],
+                "f32_share_ids_equal_numpy": float(np.mean(ids32 == want[0])),
+                "retrieved": got[0][:, :3].tolist()})
+    prompts = ex.prompts_for(docs, got[0])
+    tokens, timing = {}, {}
+    for bits in (0, 8):
+        t0 = time.perf_counter()
+        tokens[bits], eng = ex.generate(cfg, model, prompts, "cuda", bits)
+        timing[bits] = {"total_s": time.perf_counter() - t0,
+                        **eng.last_timing, "cache_bytes": eng.last_cache_bytes}
+    out["generate"] = timing
+    out["token_agreement_kv8_vs_fp"] = float(np.mean(tokens[0] == tokens[8]))
+    out["tokens_in_vocab"] = bool(all(((t >= 0) & (t < cfg.vocab_size)).all()
+                                      for t in tokens.values()))
+    emit(out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out["f64_ids_equal"] and out["f64_stats_equal"]):
+        raise AssertionError("rag: the torch backend's float64 ids or stats "
+                             "differ from the NumPy backend's")
+    if counts["hamming_stacked"] <= 0 or counts[out["stage4"]] <= 0:
+        raise AssertionError(f"rag: a kernel of the search never launched: "
+                             f"{counts}")
+    if out["token_agreement_kv8_vs_fp"] < 0.75 or not out["tokens_in_vocab"]:
+        raise AssertionError("rag: the 8-bit KV cache's tokens agree on less "
+                             "than 0.75, or a token lies outside the vocab")
+    return counts
 
 
 def extract_path(index):
@@ -2184,6 +2573,132 @@ def check_direct(index_a, queries, preds, launches, stacked, sel, qt32, keep):
         tolerance=f"rtol={ADC_RTOL}, atol=0; +inf exactly on dead slots")
 
 
+WIDE_D = 3072                  # phi4-mini-3.8b's d_model: the RAG index's width
+WIDE = dict(q=8, p=4, n_max=1024, s=256, m1_direct=257, m1_table=33, g=96)
+
+
+def wide_inputs(dtype, m1, d=WIDE_D, seed=0):
+    """Stage 4 inputs at ``d`` dims on the card: sorted boundaries (P, m1,
+    d) with -inf/+inf ends, codes, sel, keep with a whole pair and a dead
+    pair put in, a query's qt and its cells. Returns (qt, qcell, bnd,
+    codes, sel, keep)."""
+    import torch
+
+    from repro_torch.core import dataplane
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, p, n, s = WIDE["q"], WIDE["p"], WIDE["n_max"], WIDE["s"]
+    bnd = torch.sort(torch.randn((p, m1, d), device="cuda", generator=gen,
+                                 dtype=torch.float64), dim=1).values
+    bnd[:, 0], bnd[:, -1] = -math.inf, math.inf
+    bnd = bnd.to(dtype).contiguous()
+    codes = torch.randint(0, m1 - 1, (p, n, d), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    sel = torch.randint(0, n, (q, p, s), device="cuda", generator=gen)
+    keep = torch.randint(0, s + 1, (q, p), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    keep[0, 0], keep[0, 1] = s, 0
+    qt = torch.randn((q, p, d), device="cuda", generator=gen, dtype=dtype)
+    return qt, dataplane.query_cells(qt, bnd), bnd, codes, sel, keep
+
+
+def _live_counts(sel, keep, n_max):
+    """(live slots, unique live code rows, live pairs) of ``sel``/``keep``."""
+    import torch
+
+    qn, p, s = sel.shape
+    live = (torch.arange(s, device=sel.device)[None, None, :]
+            < keep[:, :, None])
+    p_idx = torch.arange(p, device=sel.device)[None, :, None]
+    rows = torch.unique(((p_idx * n_max + sel)[live])).numel()
+    return int(live.sum()), int(rows), int((keep > 0).sum())
+
+
+def check_wide():
+    """Kernels 1, 2b and 2 at d = WIDE_D against their plain versions
+    (kernel 1 at G = 96 words, exact; 2b at M+1 = 257 in f32 and f64 and 2
+    at M+1 = 33, rtol 1e-5, atol 0, +inf exactly on dead slots), each timed
+    beside its plain version and its bound. The direct kernel staged a
+    whole qt and qcell row per warp before it was tiled over d, which
+    outgrew an H100 block's shared memory at this width. Returns
+    {kernel name: result}."""
+    import torch
+
+    from repro_torch.kernels import adc_lookup, hamming, ref
+
+    q, p, n, s, d = (WIDE["q"], WIDE["p"], WIDE["n_max"], WIDE["s"], WIDE_D)
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = WIDE["g"]
+    qbits = torch.randint(-2 ** 31, 2 ** 31 - 1, (q, p, g), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    db = torch.randint(-2 ** 31, 2 ** 31 - 1, (p, 4 * n, g), device="cuda",
+                       generator=gen, dtype=torch.int32)
+    if not torch.equal(hamming.hamming_stacked(qbits, db),
+                       ref.hamming_stacked_ref(qbits, db)):
+        raise AssertionError(f"hamming_stacked at G={g} differs from its "
+                             "plain version")
+    b_ms, b_by = bound(4 * (q * p * g + p * 4 * n * g + q * p * 4 * n),
+                       3 * q * p * 4 * n * g)
+    out["hamming_stacked"] = {
+        "shape": {"Q": q, "P": p, "N": 4 * n, "G": g}, "max_abs_err": 0,
+        "ms": device_ms(lambda: hamming.hamming_stacked(qbits, db), 20),
+        "plain_ms": cuda_ms(lambda: ref.hamming_stacked_ref(qbits, db), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "tolerance": "exact"}
+    del qbits, db
+
+    cases, err = {}, 0.0
+    m1 = WIDE["m1_direct"]
+    ms = {}
+    for dtype in (torch.float32, torch.float64):
+        args = wide_inputs(dtype, m1)
+        keep = args[-1]
+        err = max(err, hold_keep("adc_direct", f"d{d}_{str(dtype)[6:]}",
+                                 adc_lookup.adc_direct(*args),
+                                 ref.adc_direct_ref(*args), keep, cases))
+        ms[dtype] = device_ms(lambda: adc_lookup.adc_direct(*args), 20)
+        if dtype == torch.float32:
+            plain_ms = cuda_ms(lambda: ref.adc_direct_ref(*args), 3)
+            live, rows, pairs = _live_counts(args[4], keep, n)
+            # the live rows' codes, sel entries, every partition's
+            # boundaries, the live pairs' qt and qcell, keep and the output
+            nbytes = (4 * rows * d + 8 * live + 4 * p * m1 * d
+                      + 8 * pairs * d + 4 * q * p + 4 * q * p * s)
+            b_ms, b_by = bound(nbytes, 4 * live * d)
+        del args
+    out["adc_direct"] = {
+        "shape": {"Q": q, "P": p, "S": s, "d": d, "M+1": m1, "n_max": n},
+        "max_abs_err": err, "ms": ms[torch.float32],
+        "ms_f64": ms[torch.float64], "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "smem_bytes_f32": adc_lookup.direct_smem_bytes(
+            m1, d, torch.float32),
+        "smem_bytes_f64": adc_lookup.direct_smem_bytes(m1, d, torch.float64),
+        "cases": cases,
+        "tolerance": f"rtol={ADC_RTOL}, atol=0; +inf exactly on dead slots"}
+
+    m1 = WIDE["m1_table"]
+    _, _, _, codes, sel, keep = wide_inputs(torch.float32, m1, seed=2)
+    tables = torch.rand((q, p, m1, d), device="cuda", generator=gen)
+    cases = {}
+    err = hold_keep("adc_table", f"d{d}", adc_lookup.adc_table(
+        tables, codes, sel, keep), ref.adc_table_ref(tables, codes, sel, keep),
+        keep, cases)
+    live, rows, pairs = _live_counts(sel, keep, n)
+    b_ms, b_by = bound(4 * rows * d + 8 * live + 4 * pairs * m1 * d
+                       + 4 * q * p + 4 * q * p * s, live * d)
+    out["adc_batch"] = {
+        "shape": {"Q": q, "P": p, "S": s, "d": d, "M+1": m1, "n_max": n},
+        "max_abs_err": err,
+        "ms": device_ms(lambda: adc_lookup.adc_table(tables, codes, sel,
+                                                     keep), 20),
+        "plain_ms": cuda_ms(lambda: ref.adc_table_ref(tables, codes, sel,
+                                                      keep), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "cases": cases,
+        "tolerance": f"rtol={ADC_RTOL}, atol=0; +inf exactly on dead slots"}
+    emit({"phase": "kernels_wide_d", **out})
+    return out
+
+
 def check_extract(index_a, packed_a, launches):
     """Kernel 5 on every Path A partition against its plain version, exact."""
     import torch
@@ -2354,9 +2869,6 @@ def main(argv=None) -> int:
         raise SystemExit("run chip_smoke.py from the root of a checkout: "
                          f"{src}/repro_torch is missing")
     sys.path.insert(0, src)          # a spawned worker inherits sys.path
-    from repro_torch.configs import get_config
-    from repro_torch.core.pipeline import SquashConfig
-    from repro_torch.data import synthetic
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -2379,6 +2891,27 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": per_lib, "ptxas": ptxas})
 
+    # The dry runs need no card: they run on the host beside everything
+    # else and are collected at the end.
+    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
+    dryruns = start_dryruns(dry_dir)
+    try:
+        return run_phases(args, card, t_start, dryruns)
+    finally:
+        for proc, _ in dryruns.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def run_phases(args, card, t_start, dryruns) -> int:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import SquashConfig
+    from repro_torch.data import synthetic
+
     lm_model = lm_check()
     lm_launches = lm_serve(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
     lm_profile(lm_model, LM_REQUESTS, LM_PROMPT_LEN)
@@ -2387,8 +2920,12 @@ def main(argv=None) -> int:
     lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
     train_check()
     grad_res = ssd_grad()
-    train_launches = train_run()
+    train_launches, train_rep = train_run()
     train_llama3_width()
+    sharded_launches = {"sharded_check": sharded_check(),
+                        "sharded_train_run": sharded_train_run(train_rep)}
+    rag_counts = rag_phase()
+    wide = check_wide()
 
     cfg_a = SquashConfig(num_partitions=10, max_bits_per_dim=8,
                          kmeans_iters=4, lloyd_iters=6)
@@ -2432,7 +2969,8 @@ def main(argv=None) -> int:
                 "adc_batch": launches_b["adc_batch"],
                 "extract_codes": extract_launches["extract_codes"],
                 "ssd_intra": (lm_launches["ssd_intra"] + zamba_launches
-                              + train_launches)}
+                              + train_launches
+                              + sum(sharded_launches.values()))}
     missing = [name for name, n in per_path.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -2458,11 +2996,17 @@ def main(argv=None) -> int:
     by_phase = {"path_a": launches_a, "path_b": launches_b,
                 "serverless_local": serverless_counts,
                 "mesh": mesh_phase(index_a, index_b, queries, preds),
-                "live": live_phase(index_b, queries, preds)}
+                "live": live_phase(index_b, queries, preds),
+                "rag": rag_counts}
+    collect_dryruns(dryruns)
     for entry in entries:
+        if entry["name"] in wide:
+            entry["wide_d"] = wide[entry["name"]]
         if entry["name"] == "ssd_intra":
             entry["launches_by_phase"]["train"] = train_launches
-            entry["launches"] += train_launches
+            entry["launches_by_phase"].update(sharded_launches)
+            entry["launches"] += train_launches + sum(
+                sharded_launches.values())
             entry["training"] = {
                 key: grad_res[key] for key in (
                     "shape", "forward_kernel_ms", "backward_ms",
@@ -2474,7 +3018,8 @@ def main(argv=None) -> int:
         if entry["name"] in ("hamming_stacked", "adc_direct", "adc_batch"):
             entry["launches_by_phase"] = {
                 phase: counts[entry["name"]]
-                for phase, counts in by_phase.items()}
+                for phase, counts in by_phase.items()
+                if counts[entry["name"]] or phase != "rag"}
             entry["launches"] = sum(entry["launches_by_phase"].values())
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": entries})

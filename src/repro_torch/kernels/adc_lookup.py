@@ -9,7 +9,10 @@
   single-table view: the same kernel at Q = 1, P = B with every slot live.
 * :func:`adc_direct` — kernel 2b, the port of
   ``repro/core/dataplane.py::adc_lb_direct`` (Stage 4 for tall tables),
-  reading each live survivor's codes through ``sel`` likewise.
+  reading each live survivor's codes through ``sel`` likewise. Its shared
+  memory does not grow with d (the query rows are staged a chunk of dims
+  at a time); :func:`check_direct_smem` refuses, before the launch, a
+  size that would not fit a block.
 
 The wrappers take CUDA tensors only — ``kernels.ops`` routes CPU tensors to
 the plain versions in ``kernels.ref``. ``batch_launches`` and
@@ -27,11 +30,13 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["adc_table", "adc_table_with", "adc_batch", "adc_lb_distances",
-           "adc_direct", "adc_direct_with", "bind", "batch_launches",
-           "direct_launches"]
+           "adc_direct", "adc_direct_with", "bind", "direct_smem_bytes",
+           "check_direct_smem", "batch_launches", "direct_launches"]
 
 batch_launches = 0
 direct_launches = 0
+
+SMEM_LIMIT = 227 * 1024     # dynamic shared memory one H100 block can use
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,12 +53,37 @@ def bind(lib: ctypes.CDLL):
     direct = lib.adc_direct_launch
     direct.argtypes = [_P] * 8 + [_I, _I, _I, _L, _I, _L, _I, _P]
     direct.restype = _I
+    lib.adc_direct_smem_bytes.argtypes = [_I, _I, _I]
+    lib.adc_direct_smem_bytes.restype = _L
     return table, direct
 
 
 @functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.library("adc_lookup")
+    bind(lib)
+    return lib
+
+
 def _launchers():
-    return bind(build.library("adc_lookup"))
+    lib = _library()
+    return lib.adc_table_launch, lib.adc_direct_launch
+
+
+def direct_smem_bytes(m1: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of kernel 2b asks for at M+1 = ``m1``
+    and ``d`` dims in ``dtype`` (the card's library)."""
+    return int(_library().adc_direct_smem_bytes(
+        m1, d, int(dtype == torch.float64)))
+
+
+def check_direct_smem(need: int, m1: int, d: int) -> None:
+    """Raise before the launch when a block of kernel 2b would need more
+    shared memory than an H100 block has, naming the sizes."""
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"adc_direct at d={d}, M+1={m1} needs {need} bytes of shared "
+            f"memory a block, over the limit of {SMEM_LIMIT} bytes")
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
@@ -189,6 +219,7 @@ def adc_direct_with(launch, qt: torch.Tensor, qcell: torch.Tensor,
     out = torch.empty((qn, p, s), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
+    check_direct_smem(direct_smem_bytes(m1, d, qt.dtype), m1, d)
     off = torch.empty(p * qn + 1, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -38,7 +38,11 @@
 //   Design: per partition its range touches (usually one), the block stages
 //   the partition's boundaries in shared memory (f32: 257 x 128 is 132 KB
 //   with a padded pitch of d + 1), or reads them through L2 (f64, or tables
-//   too large). A warp stages the pair's qt and qcell rows with its task.
+//   too large). A warp stages the pair's qt and qcell rows with its task,
+//   once per pair, where eight warps' rows fit the block (ROW); at a wider
+//   d it stages them a chunk of DC dims at a time, beside the codes of the
+//   same dims, so a block's shared memory does not grow with d (a whole row
+//   per warp outgrew the block at d = 3,072, an LM embedding's width).
 //
 // The task machinery both share: the live slots are cut into tasks of 32
 // slots of one (q, p) pair; a first one-block launch prefix-sums the pairs'
@@ -302,13 +306,14 @@ __device__ __forceinline__ float direct_term(int c, int cq, T qv,
 }
 
 // Shared memory a warp of adc_direct stages a task in: 32 code rows of DC
-// codes, and the pair's qt and qcell rows (D each).
-template <typename T>
+// codes, and the pair's qt and qcell rows (ROW: D values each) or their
+// values at the same DC dims as the codes.
+template <typename T, bool ROW>
 __host__ __device__ constexpr size_t warp_smem(int D) {
-  return (CODE_SMEM + (size_t)D * (sizeof(T) + 4) + 15) / 16 * 16;
+  return (CODE_SMEM + (size_t)(ROW ? D : DC) * (sizeof(T) + 4) + 15) / 16 * 16;
 }
 
-template <typename T, bool BND_SMEM, bool VEC>
+template <typename T, bool BND_SMEM, bool VEC, bool ROW>
 __global__ void __launch_bounds__(TASK_THREADS) adc_direct_kernel(
     const T* __restrict__ qt, const int32_t* __restrict__ qcell,
     const T* __restrict__ bnd, const int32_t* __restrict__ codes,
@@ -317,17 +322,17 @@ __global__ void __launch_bounds__(TASK_THREADS) adc_direct_kernel(
     int M1, long long NMAX, int D, long long S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  unsigned char* mine_raw = smem_raw + warp * warp_smem<T>(D);
+  unsigned char* mine_raw = smem_raw + warp * warp_smem<T, ROW>(D);
   int* cw = reinterpret_cast<int*>(mine_raw);               // (32, LDC) codes
-  T* qs = reinterpret_cast<T*>(cw + 32 * LDC);              // (D) qt row
-  int* qc = reinterpret_cast<int*>(qs + D);                 // (D) qcell row
-  T* bs = reinterpret_cast<T*>(smem_raw + TASK_WARPS * warp_smem<T>(D));
+  T* qs = reinterpret_cast<T*>(cw + 32 * LDC);    // (D) qt row or (DC) chunk
+  int* qc = reinterpret_cast<int*>(qs + (ROW ? D : DC));    // qcell likewise
+  T* bs = reinterpret_cast<T*>(smem_raw + TASK_WARPS * warp_smem<T, ROW>(D));
   const int* mine = cw + lane * LDC;                        // lane's row
 
   // Live tasks: an equal range of the (partition, query, 32 slots) list.
   const long long total = off[(long long)P * Q];
   const long long t_end = total * (blockIdx.x + 1) / gridDim.x;
-  long long staged_pair = -1;          // the pair whose qt/qcell qs/qc hold
+  long long staged_pair = -1;          // ROW: the pair whose rows qs/qc hold
   for (long long t_seg = total * blockIdx.x / gridDim.x; t_seg < t_end;) {
     const int p = last_le(off, Q, P, t_seg);
     const long long seg_end =
@@ -350,39 +355,51 @@ __global__ void __launch_bounds__(TASK_THREADS) adc_direct_kernel(
       const long long s = (t - offp[q]) * 32 + lane;
       const bool live = s < live_count(keep, P, q, p, S);
       const long long row = live ? sel[pair * S + s] : 0;
-      __syncwarp();                    // the previous task's reads are done
-      if (pair != staged_pair) {        // lands with the first code chunk
-        for (int j = lane; j < D; j += 32) {
-          cp_async_small<sizeof(T)>(qs + j, qt + pair * D + j);
-          cp_async_small<4>(qc + j, qcell + pair * D + j);
+      const T* qrow = qt + pair * D;
+      const int32_t* crow = qcell + pair * D;
+      if (ROW) {
+        __syncwarp();                  // the previous task's reads are done
+        if (pair != staged_pair) {     // lands with the first code chunk
+          for (int j = lane; j < D; j += 32) {
+            cp_async_small<sizeof(T)>(qs + j, qrow + j);
+            cp_async_small<4>(qc + j, crow + j);
+          }
+          staged_pair = pair;
         }
-        staged_pair = pair;
       }
       float acc = 0.f;
       for (int d0 = 0; d0 < D; d0 += DC) {
         const int w = min(DC, D - d0);
+        if (!ROW) {
+          for (int jj = lane; jj < w; jj += 32) {  // lands with the codes
+            cp_async_small<sizeof(T)>(qs + jj, qrow + d0 + jj);
+            cp_async_small<4>(qc + jj, crow + d0 + jj);
+          }
+        }
         stage_code_rows<VEC>(cw, cp, row, live, d0, w, D, lane);
+        const T* qv = qs + (ROW ? d0 : 0);          // dims d0 .. d0 + w
+        const int* qcv = qc + (ROW ? d0 : 0);
         if (live) {
           if (VEC) {
 #pragma unroll 4
             for (int jj = 0; jj < w; jj += 4) {
               const int j = d0 + jj;
               const int4 c4 = *reinterpret_cast<const int4*>(mine + jj);
-              const int4 q4 = *reinterpret_cast<const int4*>(qc + j);
+              const int4 q4 = *reinterpret_cast<const int4*>(qcv + jj);
               acc = __fadd_rn(acc, direct_term<T, BND_SMEM>(
-                  c4.x, q4.x, qs[j], bs, bp, j, M1, D));
+                  c4.x, q4.x, qv[jj], bs, bp, j, M1, D));
               acc = __fadd_rn(acc, direct_term<T, BND_SMEM>(
-                  c4.y, q4.y, qs[j + 1], bs, bp, j + 1, M1, D));
+                  c4.y, q4.y, qv[jj + 1], bs, bp, j + 1, M1, D));
               acc = __fadd_rn(acc, direct_term<T, BND_SMEM>(
-                  c4.z, q4.z, qs[j + 2], bs, bp, j + 2, M1, D));
+                  c4.z, q4.z, qv[jj + 2], bs, bp, j + 2, M1, D));
               acc = __fadd_rn(acc, direct_term<T, BND_SMEM>(
-                  c4.w, q4.w, qs[j + 3], bs, bp, j + 3, M1, D));
+                  c4.w, q4.w, qv[jj + 3], bs, bp, j + 3, M1, D));
             }
           } else {
             for (int jj = 0; jj < w; ++jj) {
               const int j = d0 + jj;
               acc = __fadd_rn(acc, direct_term<T, BND_SMEM>(
-                  mine[jj], qc[j], qs[j], bs, bp, j, M1, D));
+                  mine[jj], qcv[jj], qv[jj], bs, bp, j, M1, D));
             }
           }
         }
@@ -448,19 +465,43 @@ int adc_table_run(const void* tables, const void* codes, const void* sel,
 
 // Shared memory of one adc_direct block: each warp's staging, plus one
 // partition's boundaries when they are staged.
-template <typename T>
+template <typename T, bool ROW>
 size_t direct_smem(int M1, int D, bool bnd_smem) {
-  return TASK_WARPS * warp_smem<T>(D) +
+  return TASK_WARPS * warp_smem<T, ROW>(D) +
          (bnd_smem ? (size_t)M1 * (D + 1) * sizeof(T) : 0);
 }
 
-template <typename T, bool BND_SMEM, bool VEC>
+// How adc_direct stages at these sizes: whole query rows where eight warps'
+// rows fit the block, and then the boundaries too where they also fit (f32
+// only); else chunks of the rows and no boundaries.
+struct DirectPlan {
+  bool row, bnd;
+  size_t smem;
+};
+
+DirectPlan direct_plan(int M1, int D, int is_double) {
+  const size_t esz = is_double ? sizeof(double) : sizeof(float);
+  const size_t warp_row = (CODE_SMEM + (size_t)D * (esz + 4) + 15) / 16 * 16;
+  if (TASK_WARPS * warp_row > SMEM_LIMIT) {
+    return {false, false,
+            is_double ? direct_smem<double, false>(M1, D, false)
+                      : direct_smem<float, false>(M1, D, false)};
+  }
+  if (!is_double && direct_smem<float, true>(M1, D, true) <= SMEM_LIMIT)
+    return {true, true, direct_smem<float, true>(M1, D, true)};
+  return {true, false,
+          is_double ? direct_smem<double, true>(M1, D, false)
+                    : direct_smem<float, true>(M1, D, false)};
+}
+
+template <typename T, bool BND_SMEM, bool VEC, bool ROW>
 int adc_direct_run(const void* qt, const void* qcell, const void* bnd,
                    const void* codes, const void* sel, const void* keep,
                    void* off, void* out, int Q, int P, int M1, long long NMAX,
                    int D, long long S, cudaStream_t s) {
   return launch_tasks(
-      adc_direct_kernel<T, BND_SMEM, VEC>, direct_smem<T>(M1, D, BND_SMEM),
+      adc_direct_kernel<T, BND_SMEM, VEC, ROW>,
+      direct_smem<T, ROW>(M1, D, BND_SMEM),
       keep, off, Q, P, S, s, static_cast<const T*>(qt),
       static_cast<const int32_t*>(qcell), static_cast<const T*>(bnd),
       static_cast<const int32_t*>(codes), static_cast<const int64_t*>(sel),
@@ -468,18 +509,18 @@ int adc_direct_run(const void* qt, const void* qcell, const void* bnd,
       static_cast<float*>(out), Q, P, M1, NMAX, D, S);
 }
 
-template <typename T, bool BND_SMEM>
+template <typename T, bool BND_SMEM, bool ROW>
 int adc_direct_vec(bool vec, const void* qt, const void* qcell,
                    const void* bnd, const void* codes, const void* sel,
                    const void* keep, void* off, void* out, int Q, int P,
                    int M1, long long NMAX, int D, long long S,
                    cudaStream_t s) {
-  return vec ? adc_direct_run<T, BND_SMEM, true>(qt, qcell, bnd, codes, sel,
-                                                 keep, off, out, Q, P, M1,
-                                                 NMAX, D, S, s)
-             : adc_direct_run<T, BND_SMEM, false>(qt, qcell, bnd, codes, sel,
-                                                  keep, off, out, Q, P, M1,
-                                                  NMAX, D, S, s);
+  return vec ? adc_direct_run<T, BND_SMEM, true, ROW>(
+                   qt, qcell, bnd, codes, sel, keep, off, out, Q, P, M1,
+                   NMAX, D, S, s)
+             : adc_direct_run<T, BND_SMEM, false, ROW>(
+                   qt, qcell, bnd, codes, sel, keep, off, out, Q, P, M1,
+                   NMAX, D, S, s);
 }
 
 }  // namespace
@@ -521,14 +562,34 @@ extern "C" int adc_direct_launch(const void* qt, const void* qcell,
                                  int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = (D % 4 == 0) && aligned16(codes);
+  const DirectPlan plan = direct_plan(M1, D, is_double);
   if (is_double) {
-    return adc_direct_vec<double, false>(vec, qt, qcell, bnd, codes, sel, keep,
-                                         off, out, Q, P, M1, NMAX, D, S, s);
+    return plan.row
+               ? adc_direct_vec<double, false, true>(vec, qt, qcell, bnd,
+                                                     codes, sel, keep, off,
+                                                     out, Q, P, M1, NMAX, D,
+                                                     S, s)
+               : adc_direct_vec<double, false, false>(vec, qt, qcell, bnd,
+                                                      codes, sel, keep, off,
+                                                      out, Q, P, M1, NMAX, D,
+                                                      S, s);
   }
-  if (direct_smem<float>(M1, D, true) <= SMEM_LIMIT) {
-    return adc_direct_vec<float, true>(vec, qt, qcell, bnd, codes, sel, keep,
-                                       off, out, Q, P, M1, NMAX, D, S, s);
+  if (plan.bnd) {
+    return adc_direct_vec<float, true, true>(vec, qt, qcell, bnd, codes, sel,
+                                             keep, off, out, Q, P, M1, NMAX,
+                                             D, S, s);
   }
-  return adc_direct_vec<float, false>(vec, qt, qcell, bnd, codes, sel, keep,
-                                      off, out, Q, P, M1, NMAX, D, S, s);
+  return plan.row
+             ? adc_direct_vec<float, false, true>(vec, qt, qcell, bnd, codes,
+                                                  sel, keep, off, out, Q, P,
+                                                  M1, NMAX, D, S, s)
+             : adc_direct_vec<float, false, false>(vec, qt, qcell, bnd,
+                                                   codes, sel, keep, off, out,
+                                                   Q, P, M1, NMAX, D, S, s);
+}
+
+// Dynamic shared memory one adc_direct block asks for at these sizes; the
+// wrapper refuses a launch that would exceed SMEM_LIMIT before making it.
+extern "C" long long adc_direct_smem_bytes(int M1, int D, int is_double) {
+  return (long long)direct_plan(M1, D, is_double).smem;
 }

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core.segments import SegmentLayout
 from repro_torch.kernels import adc_lookup, bitpack, hamming, ref, ssd
 
@@ -75,7 +77,10 @@ def extract_codes(segments, layout: SegmentLayout):
 
 def ssd_intra(c_mat, b_mat, da, x):
     """(G,lc,N)/(G,lc,N)/(G,H,lc)/(G,H,lc,P) f32 → (G,H,lc,P) SSD intra-chunk.
-    On the card, the kernel with its gradient (``ssd.ssd_intra_autograd``)."""
+    On the card, the kernel with its gradient (``ssd.ssd_intra_autograd``);
+    on DTensors, each rank's own block of it (``ssd.ssd_intra_sharded``)."""
+    if isinstance(c_mat, DTensor):
+        return ssd.ssd_intra_sharded(c_mat, b_mat, da, x)
     if c_mat.is_cuda:
         return ssd.ssd_intra_autograd(c_mat, b_mat, da, x)
     return ref.ssd_intra_ref(c_mat, b_mat, da, x)

@@ -33,7 +33,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 __all__ = ["ssd_intra", "ssd_intra_with", "ssd_intra_autograd",
-           "SsdIntraFunction", "bind", "kernel_strides", "launches"]
+           "ssd_intra_sharded", "SsdIntraFunction", "bind", "kernel_strides",
+           "launches"]
 
 launches = 0
 
@@ -157,3 +158,38 @@ def ssd_intra_autograd(c_mat: torch.Tensor, b_mat: torch.Tensor,
     """:func:`ssd_intra` (or ``forward``) differentiable in all four
     inputs."""
     return SsdIntraFunction.apply(c_mat, b_mat, da, x, forward or ssd_intra)
+
+
+def ssd_intra_sharded(c_mat, b_mat, da, x):
+    """Kernel 6 on DTensors, through ``local_map``: each rank runs
+    :func:`ssd_intra_autograd` on its own block, with no communication
+    beyond placing the inputs at the reference's placements
+    (``repro/models/ssm.py:194-198``): C and B (G, lc, N) with G over
+    ``data`` and replicated over ``model``, da (G, H, lc) and x (G, H, lc,
+    P) with G over ``data`` and the heads over ``model`` (an axis that does
+    not divide its dim is dropped). The output lies as x. On the card each
+    rank launches the kernel; on CPU tensors the same Function runs the
+    plain version, with the same plain backward."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.shardings import fitted_placements
+
+    mesh = c_mat.device_mesh
+
+    def placed(spec, t):
+        return fitted_placements(spec, t.shape, mesh)
+
+    cb = placed(("data", None, None), c_mat)
+    xs = placed(("data", "model", None, None), x)
+    das = placed(("data", "model", None), da)
+    # A rank's dC and dB sum over its own heads only: partial sums over
+    # the mesh dims the heads are sharded over.
+    cb_grad = [Partial() if c.is_replicate() and h.is_shard(1) else c
+               for c, h in zip(cb, xs)]
+    forward = ssd_intra if c_mat.is_cuda else ref.ssd_intra_ref
+    return local_map(
+        lambda c, b, a, xx: ssd_intra_autograd(c, b, a, xx, forward),
+        out_placements=xs, in_placements=(cb, cb, das, xs),
+        in_grad_placements=(cb_grad, cb_grad, das, xs),
+        device_mesh=mesh, redistribute_inputs=True)(c_mat, b_mat, da, x)

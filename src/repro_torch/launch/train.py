@@ -28,6 +28,7 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.data.synthetic import token_batch
 from repro_torch.kernels import ops
+from repro_torch.launch import shardings as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
 from repro_torch.serve.engine import resolve_device
@@ -60,13 +61,16 @@ def make_batch(cfg: ArchConfig, batch: int, seq: int, step: int,
 def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
           lr: float = 3e-4, accum: int = 1, reduced: bool = False,
           ckpt: Optional[str] = None, device="cuda", seed: int = 0,
-          log=None) -> dict:
+          log=None, mesh=None) -> dict:
     """Train ``arch`` for ``steps`` steps; returns the report.
 
     Times are host-clock seconds around steps that end with a synchronize
     of the device. The report also holds the trained ``model`` and its
     ``opt_state`` (not numbers: a caller that prints the report pops
-    them). ``log(i, metrics)`` is called after each step.
+    them). ``log(i, metrics)`` is called after each step. With ``mesh`` (a
+    ("data", "model") ``DeviceMesh`` of the default process group on
+    ``device``'s type), the model, its optimizer state and every batch are
+    sharded by ``launch.shardings`` and the steps run on DTensors.
     """
     dev = resolve_device(device)
     cfg = get_config(arch)
@@ -76,9 +80,13 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     model = T.init_params(cfg, seed=seed, device=dev)
     _synchronize(dev)
     init_s = time.perf_counter() - t0
+    if mesh is not None:
+        SH.shard_model(model, mesh)
     opt_cfg = AdamWConfig(lr=lr)
     params = dict(model.named_parameters())
     state = adamw_init(params, opt_cfg)
+    if mesh is not None:
+        state = SH.shard_opt_state(state, model, mesh)
     sched = cosine_schedule(lr, warmup=max(steps // 10, 1), total=steps)
     step = make_train_step(cfg, opt_cfg, sched, accum_steps=accum)
     if dev.type == "cuda":
@@ -86,6 +94,8 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     rows, step_s, launches = [], [], []
     for i in range(steps):
         b = make_batch(cfg, batch, seq, i, dev)
+        if mesh is not None:
+            b = SH.shard_batch(b, mesh)
         before = ops.launch_counts()["ssd_intra"]
         _synchronize(dev)
         t0 = time.perf_counter()
@@ -100,6 +110,7 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     rep = {
         "arch": cfg.name, "device": str(dev),
         "params": sum(p.numel() for p in params.values()),
+        "mesh": None if mesh is None else SH.mesh_axes(mesh),
         "steps": steps, "batch": batch, "seq": seq, "accum": accum,
         "init_s": init_s, "first_step_s": step_s[0],
         "steady_step_ms": statistics.median(steady) * 1e3,

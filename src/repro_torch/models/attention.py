@@ -22,6 +22,7 @@ a pad query, stays a uniform average as in the reference).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -30,19 +31,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.hints import ambient_mesh_sizes, hint
+from repro_torch.models.hints import (along, hint_local, is_sharded,
+                                      merge_heads, mesh_sizes, pad_dim,
+                                      split_heads)
 
 __all__ = ["GQA", "MLA", "init_gqa_cache", "init_mla_cache"]
 
 _NEG = -1e9
 Q_CHUNK = 512
-
-
-def _heads_need_pinning(num_heads: int, num_kv: int) -> bool:
-    """The reference pins the kv-group axis to a 'model' mesh axis that does
-    not divide the heads; the port has no such mesh (``hints``)."""
-    m = ambient_mesh_sizes().get("model", 0)
-    return bool(m) and num_heads % m != 0 and 2 * num_kv >= m
 
 
 # ---------------------------------------------------------------- core attend
@@ -55,7 +51,76 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); q_pos: (B, Sq); k_pos: (B, Sk).
     Causal + optional sliding window; k_pos < 0 marks invalid slots and
     q_pos < 0 pad rows. Returns (B, Sq, H, vd).
+
+    On DTensors each rank attends its own block, with batch over ``data``.
+    Where ``model`` divides the kv heads, they (with their query groups) lie
+    over it; else, where it divides the query heads (llama3-8b's 32 over a
+    model axis of 16, with 8 kv heads), the query heads lie over it and
+    each rank picks the kv heads its own query heads read from whole k/v,
+    as GSPMD shards the reference's query heads; else (gemma3-4b's 8 heads
+    over 16) the queries lie over it along the sequence, against whole k/v
+    (the reference pads kv heads up to the axis, or leaves the choice to
+    GSPMD). Either way no rank repeats another's work, but where no dim
+    divides (a decode step's one query). A rank's k and v gradients are
+    then partial sums over its own queries. DTensor's einsum would flatten
+    a sharded head dim into its batched product, which torch 2.11 refuses.
     """
+    if not is_sharded(q):
+        return _attend_local(q, k, v, q_pos, k_pos, window=window,
+                             q_chunk=q_chunk)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.shardings import fitted_placements
+
+    mesh = q.device_mesh
+    m = mesh_sizes(q).get("model", 1)
+    h, kv = q.shape[2], k.shape[2]
+    by_heads = kv % m == 0 or h % m == 0
+    q_heads = "model" if by_heads else None
+    q_rows = None if by_heads else "model"
+    kv_heads = "model" if kv % m == 0 else None
+
+    def placed(t, spec):
+        return fitted_placements(spec, t.shape, mesh)
+
+    def as_dtensor(t):
+        return t if is_sharded(t) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    qp = placed(q, ("data", q_rows, q_heads, None))
+    kp = placed(k, ("data", None, kv_heads, None))
+    fn = functools.partial(_attend_local, window=window, q_chunk=q_chunk)
+    if q_heads and not kv_heads:
+        fn = functools.partial(_attend_own_heads, fn,
+                               mesh.get_local_rank("model"), h // kv)
+    kv_grad = [Partial() if c.is_replicate() and a.is_shard() else c
+               for c, a in zip(kp, qp)]
+    pos = (placed(q_pos, ("data", q_rows)), placed(k_pos, ("data", None)))
+    return local_map(
+        fn, out_placements=qp, in_placements=(qp, kp, kp, *pos),
+        in_grad_placements=(qp, kv_grad, kv_grad, *pos),
+        device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, as_dtensor(q_pos), as_dtensor(k_pos))
+
+
+def _attend_own_heads(attend, rank: int, group: int, q: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor) -> torch.Tensor:
+    """``attend`` on this rank's block of query heads (the ``rank``-th of
+    ``q.shape[2]`` heads each, ``group`` query heads a kv head) against the
+    kv heads they read, picked from whole k and v: one kv head a query
+    head."""
+    hl = q.shape[2]
+    idx = torch.arange(rank * hl, (rank + 1) * hl, device=k.device) // group
+    return attend(q, k.index_select(2, idx), v.index_select(2, idx),
+                  q_pos, k_pos)
+
+
+def _attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor, *, window: int,
+                  q_chunk: int) -> torch.Tensor:
+    """:func:`_attend` on plain tensors."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     vd = v.shape[-1]
@@ -69,10 +134,6 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nq = q.shape[1] // qc
     qs = q.reshape(b, nq, qc, kv, g, hd)
     qps = q_pos.reshape(b, nq, qc)
-    if sq > 1 and _heads_need_pinning(h, kv):
-        qs = hint(qs, "data", None, None, "model", None, None)
-        k = hint(k, "data", None, "model", None)
-        v = hint(v, "data", None, "model", None)
     kp = k_pos[:, None, :]
     outs = []
     for i in range(nq):
@@ -95,8 +156,30 @@ def _decode_positions(b: int, pos: int, device) -> torch.Tensor:
 
 def _update_slot(buf: torch.Tensor, slot: int, new: torch.Tensor) -> None:
     """``buf[:, slot] = new[:, 0]`` with ``dynamic_update_slice``'s clamp of
-    the start index into the buffer."""
-    buf[:, min(max(slot, 0), buf.shape[1] - 1)] = new[:, 0].to(buf.dtype)
+    the start index into the buffer. A sharded cache is written in its
+    local shards: each rank writes the slot into the shard that holds it
+    (the buffer axis lies over ``model`` in the ``seq`` profile), with
+    ``new`` placed as the cache."""
+    slot = min(max(slot, 0), buf.shape[1] - 1)
+    new = new[:, 0].to(buf.dtype)
+    if not is_sharded(buf):
+        buf[:, slot] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = buf.device_mesh
+    # new lacks the buffer axis (dim 1): the dims after it move down one.
+    placements = [Replicate() if p.is_shard(1) else
+                  Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p
+                  for p in buf.placements]
+    new = hint_local(new, mesh, placements)
+    shape, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    i = slot - offset[1]
+    if 0 <= i < shape[1]:
+        buf.to_local()[:, i] = new
 
 
 # ----------------------------------------------------------------------- GQA
@@ -130,9 +213,9 @@ class GQA(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q = self.wq(x).reshape(b, s, h, hd)
-        k = self.wk(x).reshape(b, s, kv, hd)
-        v = self.wv(x).reshape(b, s, kv, hd)
+        q = split_heads(self.wq(x), h, hd)
+        k = split_heads(self.wk(x), kv, hd)
+        v = split_heads(self.wv(x), kv, hd)
         if cfg.mrope and positions_3d is not None:
             q = L.apply_mrope(q, positions_3d, cfg.rope_theta)
             k = L.apply_mrope(k, positions_3d, cfg.rope_theta)
@@ -146,7 +229,7 @@ class GQA(nn.Module):
         """Full-sequence attention → (y, k, v)."""
         q, k, v = self._qkv(x, positions, positions_3d)
         out = _attend(q, k, v, positions, positions, window)
-        return self.wo(out.reshape(*x.shape[:2], -1)), k, v
+        return self.wo(merge_heads(out)), k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 window: int = 0,
@@ -161,12 +244,13 @@ class GQA(nn.Module):
         s = x.shape[1]
         y, k, v = self._full(x, positions, window, positions_3d)
         if buf_len >= s:
-            ck = F.pad(k, (0, 0, 0, 0, 0, buf_len - s))
-            cv = F.pad(v, (0, 0, 0, 0, 0, buf_len - s))
+            ck = pad_dim(k, 1, 0, buf_len - s)
+            cv = pad_dim(v, 1, 0, buf_len - s)
         else:  # ring buffer keeps the trailing ``buf_len`` positions
             roll = s % buf_len
-            ck = torch.roll(k[:, s - buf_len:], roll, dims=1)
-            cv = torch.roll(v[:, s - buf_len:], roll, dims=1)
+            ck, cv = (along(lambda t: torch.roll(t[:, s - buf_len:], roll,
+                                                dims=1), t, 1)
+                      for t in (k, v))
         return y, {"k": ck.to(x.dtype), "v": cv.to(x.dtype)}
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -184,10 +268,10 @@ class GQA(nn.Module):
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         buf = cache["k"].shape[1]
         posv = _decode_positions(b, pos, x.device)
-        q = L.apply_rope(self.wq(x).reshape(b, 1, h, hd), posv, cfg.rope_theta)
-        k = L.apply_rope(self.wk(x).reshape(b, 1, kv, hd), posv,
+        q = L.apply_rope(split_heads(self.wq(x), h, hd), posv, cfg.rope_theta)
+        k = L.apply_rope(split_heads(self.wk(x), kv, hd), posv,
                          cfg.rope_theta)
-        v = self.wv(x).reshape(b, 1, kv, hd)
+        v = split_heads(self.wv(x), kv, hd)
         slot = pos % buf if window else pos
         _update_slot(cache["k"], slot, k)
         _update_slot(cache["v"], slot, v)
@@ -200,7 +284,7 @@ class GQA(nn.Module):
         k_pos = k_pos[None, :].expand(b, buf).to(torch.int32)
         out = _attend(q, cache["k"], cache["v"], posv, k_pos, window,
                       q_chunk=1)
-        return self.wo(out.reshape(b, 1, -1))
+        return self.wo(merge_heads(out))
 
 
 # ----------------------------------------------------------------------- MLA
@@ -242,15 +326,15 @@ class MLA(nn.Module):
         h = cfg.num_heads
         nope, rope, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
                                 cfg.v_head_dim, cfg.kv_lora_rank)
-        q = self.wq(x).reshape(b, s, h, nope + rope)
+        q = split_heads(self.wq(x), h, nope + rope)
         q_nope = q[..., :nope]
         q_rope = L.apply_rope(q[..., nope:], positions, cfg.rope_theta)
         dkv = self.w_dkv(x)                                   # (B,S,lora+rope)
         latent = dkv[..., :lora]
         k_rope = L.apply_rope(dkv[..., lora:][:, :, None, :], positions,
                               cfg.rope_theta)
-        k_nope = self.w_uk(latent).reshape(b, s, h, nope)
-        v = self.w_uv(latent).reshape(b, s, h, vd)
+        k_nope = split_heads(self.w_uk(latent), h, nope)
+        v = split_heads(self.w_uv(latent), h, vd)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
         return q_full, k_full, v, latent, k_rope[:, :, 0, :]
@@ -259,7 +343,7 @@ class MLA(nn.Module):
         """Full-sequence attention → (y, latent, k_rope)."""
         q, k, v, latent, k_rope = self._qkv_full(x, positions)
         out = _attend(q, k, v, positions, positions, window)
-        return self.wo(out.reshape(*x.shape[:2], -1)), latent, k_rope
+        return self.wo(merge_heads(out)), latent, k_rope
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 window: int = 0) -> torch.Tensor:
@@ -271,8 +355,8 @@ class MLA(nn.Module):
                 window: int = 0):
         y, latent, k_rope = self._full(x, positions, window)
         pad = buf_len - x.shape[1]
-        return y, {"latent": F.pad(latent, (0, 0, 0, pad)).to(x.dtype),
-                   "k_rope": F.pad(k_rope, (0, 0, 0, pad)).to(x.dtype)}
+        return y, {"latent": pad_dim(latent, 1, 0, pad).to(x.dtype),
+                   "k_rope": pad_dim(k_rope, 1, 0, pad).to(x.dtype)}
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, window: int = 0) -> torch.Tensor:
@@ -290,7 +374,7 @@ class MLA(nn.Module):
                                 cfg.v_head_dim, cfg.kv_lora_rank)
         buf = cache["latent"].shape[1]
         posv = _decode_positions(b, pos, x.device)
-        q = self.wq(x).reshape(b, 1, h, nope + rope)
+        q = split_heads(self.wq(x), h, nope + rope)
         q_nope = q[..., :nope]
         q_rope = L.apply_rope(q[..., nope:], posv, cfg.rope_theta)
         dkv = self.w_dkv(x)
@@ -317,4 +401,4 @@ class MLA(nn.Module):
         ctx = torch.einsum("bhqs,bsl->bhql", p, c_lat)
         w_uv = self.w_uv.w.reshape(lora, h, vd).to(torch.float32)
         out = torch.einsum("bhql,lhv->bqhv", ctx, w_uv)
-        return self.wo(out.reshape(b, 1, h * vd).to(x.dtype))
+        return self.wo(merge_heads(out).to(x.dtype))

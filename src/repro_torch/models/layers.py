@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.hints import hint
+
 __all__ = ["RMSNorm", "Linear", "MLP", "Embedding", "rope_frequencies",
            "apply_rope", "apply_mrope", "cross_entropy_loss"]
 
@@ -68,7 +70,10 @@ class Embedding(nn.Module):
             self.table.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens]
+        # F.embedding, not an index: on a DTensor it is DTensor's
+        # vocab-parallel lookup (an index's backward, index_put, has no
+        # working sharding strategy in torch 2.11).
+        return F.embedding(tokens, self.table)
 
 
 class MLP(nn.Module):
@@ -144,8 +149,11 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_id: int = -100) -> torch.Tensor:
-    """Mean token cross-entropy in f32; labels == ignore_id are masked."""
-    logits = logits.to(torch.float32)
+    """Mean token cross-entropy in f32; labels == ignore_id are masked.
+    Sharded logits are gathered over the vocabulary first (batch stays
+    over ``data``): the gold logit's gather reads the whole row."""
+    logits = hint(logits.to(torch.float32), "data",
+                  *([None] * (logits.ndim - 1)))
     mask = labels != ignore_id
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -21,6 +21,7 @@ mean router prob per expert, scaled by E).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -29,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.hints import hint, on_replicated
 
 __all__ = ["MoE", "ExpertStack", "capacity"]
 
@@ -87,62 +89,94 @@ class MoE(nn.Module):
                 getattr(self, name).reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, S, d) → (y (B, S, d), aux_loss scalar)."""
+        """x: (B, S, d) → (y (B, S, d), aux_loss scalar).
+
+        On a sharded model the routing, the dispatch gather and the combine
+        run on the whole, replicated tokens on every rank
+        (``hints.on_replicated``), and the expert products on the experts'
+        shards: dispatched tokens and expert outputs pinned E over
+        ``model``, the output tokens over ``data``, as the reference's
+        hints pin them."""
         cfg = self.cfg
         b, s, d = x.shape
-        e, k = cfg.num_experts, cfg.top_k
         t = b * s
-        xt = x.reshape(t, d)
+        xt = hint(x.reshape(t, d), "data", None)
         c = capacity(cfg, t)
-        dev = x.device
 
         # --- routing (f32 for a stable softmax) -----------------------------
         probs = torch.softmax(self.router(xt.to(torch.float32)), dim=-1)
-        top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-        top_p, top_e = top_p[:, :k], top_e[:, :k]               # (T, K)
-        top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
+        flat_p, flat_tok, keep, slot, tok_for_slot, aux = on_replicated(
+            functools.partial(_route, cfg=cfg, c=c), 6, probs)
 
-        # --- aux load-balance loss (Switch eq. 4) ---------------------------
-        frac_tokens = F.one_hot(top_e[:, 0], e).to(torch.float32).mean(dim=0)
-        mean_prob = probs.mean(dim=0)
-        aux = cfg.router_aux_weight * e * torch.sum(frac_tokens * mean_prob)
-
-        # --- capacity slots: stable sort by expert, rank within expert ------
-        flat_e = top_e.reshape(-1)                               # (T·K,)
-        flat_p = top_p.reshape(-1)
-        flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
-        order = torch.argsort(flat_e, stable=True)
-        sorted_e = flat_e[order]
-        seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev),
-                                       side="left")
-        rank_sorted = torch.arange(t * k, device=dev) - seg_start[sorted_e]
-        rank = torch.empty_like(rank_sorted)
-        rank[order] = rank_sorted                                # unsort
-        keep = rank < c
-        slot = torch.where(keep, flat_e * c + rank, e * c)       # drop → pad
-
-        # --- dispatch: masked safe-gather of tokens into (E·C, d) -----------
-        tok_for_slot = torch.full((e * c + 1,), t, dtype=torch.int64,
-                                  device=dev)
-        tok_for_slot[slot] = flat_tok                            # pad row last
-        tok_for_slot = tok_for_slot[:e * c]
-        empty_slot = tok_for_slot >= t
-        dispatched = torch.where(
-            empty_slot[:, None], 0.0,
-            xt[torch.where(empty_slot, 0, tok_for_slot)]).reshape(e, c, d)
-
-        # --- grouped expert SwiGLU (E-stacked) ------------------------------
-        out = self.experts(dispatched)                           # (E, C, d)
-
-        # --- combine: scatter-add weighted expert outputs back to tokens ----
-        gathered = out.reshape(e * c, d)[torch.where(slot >= e * c, 0, slot)]
-        weighted = gathered * flat_p[:, None].to(gathered.dtype)
-        y = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
-            0, flat_tok, torch.where(keep[:, None], weighted, 0.0).to(x.dtype))
+        # --- dispatch → grouped expert SwiGLU (E-stacked) → combine --------
+        dispatched = on_replicated(_dispatch, 1, xt, tok_for_slot).reshape(
+            cfg.num_experts, c, d)
+        dispatched = hint(dispatched, "model", None, None)
+        out = hint(self.experts(dispatched), "model", None, None)
+        y = hint(on_replicated(functools.partial(_combine, t=t,
+                                                 dtype=x.dtype),
+                               1, out, slot, keep, flat_p, flat_tok),
+                 "data", None)
 
         # --- shared experts & dense residual (DeepSeek / Arctic variants) ---
         if hasattr(self, "shared"):
             y = y + self.shared(xt)
         if hasattr(self, "dense"):
             y = y + self.dense(xt)
-        return y.reshape(b, s, d), aux
+        # (the sums may have taken another operand's placements)
+        return hint(y, "data", None).reshape(b, s, d), aux
+
+
+def _route(probs: torch.Tensor, *, cfg: ArchConfig, c: int):
+    """(T, E) router probabilities → the top-k weights and token of every
+    (token, choice) (T·K,), whether it keeps a capacity slot and which,
+    each slot's token (E·C,) (T where empty), and the aux loss."""
+    t, e = probs.shape
+    k = cfg.top_k
+    dev = probs.device
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]                   # (T, K)
+    top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # --- aux load-balance loss (Switch eq. 4) -------------------------------
+    frac_tokens = F.one_hot(top_e[:, 0], e).to(torch.float32).mean(dim=0)
+    mean_prob = probs.mean(dim=0)
+    aux = cfg.router_aux_weight * e * torch.sum(frac_tokens * mean_prob)
+
+    # --- capacity slots: stable sort by expert, rank within expert ----------
+    flat_e = top_e.reshape(-1)                                   # (T·K,)
+    flat_p = top_p.reshape(-1)
+    flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev),
+                                   side="left")
+    rank_sorted = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    rank = torch.empty_like(rank_sorted)
+    rank[order] = rank_sorted                                    # unsort
+    keep = rank < c
+    slot = torch.where(keep, flat_e * c + rank, e * c)           # drop → pad
+
+    tok_for_slot = torch.full((e * c + 1,), t, dtype=torch.int64, device=dev)
+    tok_for_slot[slot] = flat_tok                                # pad row last
+    return flat_p, flat_tok, keep, slot, tok_for_slot[:e * c], aux
+
+
+def _dispatch(xt: torch.Tensor, tok_for_slot: torch.Tensor) -> torch.Tensor:
+    """Masked safe-gather of token states into (E·C, d): zeros at empty
+    slots."""
+    empty_slot = tok_for_slot >= xt.shape[0]
+    return torch.where(empty_slot[:, None], 0.0,
+                       xt[torch.where(empty_slot, 0, tok_for_slot)])
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             flat_p: torch.Tensor, flat_tok: torch.Tensor, *, t: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Scatter-add the weighted expert outputs (E, C, d) back to their
+    ``t`` tokens → (T, d) in ``dtype``."""
+    e, c, d = out.shape
+    gathered = out.reshape(e * c, d)[torch.where(slot >= e * c, 0, slot)]
+    weighted = gathered * flat_p[:, None].to(gathered.dtype)
+    return torch.zeros((t, d), dtype=dtype, device=out.device).index_add_(
+        0, flat_tok, torch.where(keep[:, None], weighted, 0.0).to(dtype))

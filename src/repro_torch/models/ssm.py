@@ -11,7 +11,12 @@ Conventions (n_groups = 1, B/C shared across heads, as in the 370m config):
   d_inner = expand · d_model,  H = d_inner / headdim,  N = ssm_state.
 The input projections are split into z | xBC | dt; a depthwise causal conv
 runs over the [x | B | C] channels; gated RMSNorm before out_proj. All math
-is f32. The reference's sharding hints have no counterpart on one card.
+is f32. Parameters broadcast by trailing alignment, without leading
+``[None]`` axes: on a 1 × 1 mesh DTensor's backward of such an axis
+squeezes a size-1 dim it holds as sharded, which it refuses. The
+reference's sharding hints place a sharded model's streams
+(``hints.hint``): heads over ``model``, B and C replicated over it, so
+that kernel 6 runs on each rank's own heads (``kernels.ops.ssd_intra``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.hints import along, hint, pad_dim, split_heads
 
 __all__ = ["Mamba2Mixer", "ssd_chunked", "init_mamba2_cache"]
 
@@ -39,10 +45,10 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
                  conv_b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over the sequence axis. xbc: (B, S, C)."""
     kw = conv_w.shape[0]
-    pad = F.pad(xbc, (0, 0, kw - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1], :] * conv_w[i][None, None, :]
+    pad = pad_dim(xbc, 1, kw - 1, 0)
+    out = sum(pad[:, i:i + xbc.shape[1], :] * conv_w[i]
               for i in range(kw))
-    return F.silu(out + conv_b[None, None, :])
+    return F.silu(out + conv_b)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -62,10 +68,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     lc = min(chunk, s)
     pad = (-s) % lc
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b_mat = F.pad(b_mat, (0, 0, 0, pad))
-        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+        x, dt, b_mat, c_mat = (pad_dim(t, 1, 0, pad)
+                               for t in (x, dt, b_mat, c_mat))
     nc = x.shape[1] // lc
 
     xc = x.reshape(bsz, nc, lc, h, p)
@@ -73,8 +77,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bc = b_mat.reshape(bsz, nc, lc, n)
     cc = c_mat.reshape(bsz, nc, lc, n)
 
-    da = dtc * a[None, None, None, :]                       # (B,nc,lc,H) ≤ 0
-    a_cs = torch.cumsum(da, dim=2)                          # within-chunk
+    da = dtc * a                       # (B,nc,lc,H) ≤ 0
+    a_cs = along(lambda t: torch.cumsum(t, dim=2), da, 2)   # within-chunk
     xdt = xc * dtc[..., None]
 
     # Intra-chunk (quadratic in lc — the "attention duality" term), kernel 6.
@@ -170,12 +174,18 @@ class Mamba2Mixer(nn.Module):
         xs = xbc_conv[..., :d_inner]
         b_mat = xbc_conv[..., d_inner:d_inner + n]
         c_mat = xbc_conv[..., d_inner + n:]
-        dt = F.softplus(dt.to(torch.float32) + self.dt_bias[None, None, :])
+        dt = F.softplus(dt.to(torch.float32) + self.dt_bias)
         a = -torch.exp(self.A_log)
-        xh = xs.reshape(*xs.shape[:2], h, p).to(torch.float32)
+        # The reference's placements on a mesh: heads over `model`; the
+        # slim shared B/C streams replicated (every head reads them).
+        xs = hint(xs, "data", None, "model")
+        b_mat = hint(b_mat, "data", None, None)
+        c_mat = hint(c_mat, "data", None, None)
+        xh = split_heads(xs, h, p).to(torch.float32)
+        xh = hint(xh, "data", None, "model", None)
         y, state = ssd_chunked(xh, dt, a, b_mat.to(torch.float32),
                                c_mat.to(torch.float32), cfg.ssm_chunk)
-        y = y + self.D[None, None, :, None] * xh
+        y = y + self.D[:, None] * xh
         y = y.reshape(*xs.shape[:2], d_inner).to(x.dtype)
         y = self.norm(y * F.silu(z))
         return self.out_proj(y), state, xbc
@@ -216,13 +226,13 @@ class Mamba2Mixer(nn.Module):
         xs = xbc[..., :d_inner]
         b_vec = xbc[..., d_inner:d_inner + n]
         c_vec = xbc[..., d_inner + n:]
-        dt = F.softplus(dt.to(torch.float32) + self.dt_bias[None, :])
-        da = torch.exp(dt * (-torch.exp(self.A_log))[None, :])      # (B,H)
-        xh = xs.reshape(bsz, h, p)
+        dt = F.softplus(dt.to(torch.float32) + self.dt_bias)
+        da = torch.exp(dt * -torch.exp(self.A_log))      # (B,H)
+        xh = split_heads(xs, h, p)
         state.mul_(da[:, :, None, None]).add_(
             torch.einsum("bhp,bn,bh->bhpn", xh, b_vec, dt))
         y = torch.einsum("bhpn,bn->bhp", state, c_vec)
-        y = y + self.D[None, :, None] * xh
+        y = y + self.D[:, None] * xh
         y = y.reshape(bsz, 1, d_inner).to(x.dtype)
         y = self.norm(y * F.silu(z[:, None, :]))
         conv.copy_(window[:, 1:])

@@ -33,6 +33,7 @@ stacking axes. ``serve.kv_quant`` picks leaves by these names.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -45,6 +46,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models.hints import hint, hint_local, is_sharded, sharded_scope
 
 __all__ = ["Block", "DecoderLM", "init_params", "from_jax_params",
            "from_jax_opt_state", "make_positions", "vlm_positions_3d"]
@@ -100,6 +102,7 @@ class Block(nn.Module):
                     window: int = 0,
                     positions_3d: Optional[torch.Tensor] = None):
         """x: (B, S, d) → (y, aux loss). Full-sequence, no cache."""
+        x = _pin_stream(x)
         h = self.norm1(x)
         if self.kind == "mamba":
             mixed, _ = self.mixer(h)
@@ -117,6 +120,7 @@ class Block(nn.Module):
                       buf_len: int, *, window: int = 0,
                       positions_3d: Optional[torch.Tensor] = None):
         """x: (B, S, d) → (y, this layer's cache, aux loss)."""
+        x = _pin_stream(x)
         h = self.norm1(x)
         if self.kind == "mamba":
             mixed, cache = self.mixer.prefill(h)
@@ -135,6 +139,7 @@ class Block(nn.Module):
     def block_decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                      pos: int, *, window: int = 0) -> torch.Tensor:
         """x: (B, 1, d); updates this layer's ``cache`` in place."""
+        x = _pin_stream(x)
         h = self.norm1(x)
         if self.kind == "mamba":
             x = x + self.mixer.mamba2_decode(h, cache["conv"], cache["state"])
@@ -143,6 +148,14 @@ class Block(nn.Module):
             return x
         x = x + self.attn.decode(h, cache, pos, window)
         return self._ffn(x)[0]
+
+
+def _pin_stream(x: torch.Tensor) -> torch.Tensor:
+    """A sharded model's residual stream at a block's entry: batch over
+    ``data``, whole elsewhere (as the embed output). Pinned at every block,
+    so that the placements the previous block's products left (partial
+    sums, the batch over both axes) do not carry into this one's."""
+    return hint(x, "data", None, None)
 
 
 def _block_cache(cfg: ArchConfig, kind: str, batch: int, buf_len: int,
@@ -166,8 +179,34 @@ def _at(stack: Dict[str, torch.Tensor], *idx) -> Dict[str, torch.Tensor]:
 
 
 def _put(stack: Dict[str, torch.Tensor], idx, cache) -> None:
+    """Write one layer's cache into the stacks at ``idx``. A sharded
+    layer's cache (a sharded model's prefill) turns its plain stack into a
+    DTensor placed as the layer's leaves, the stacking axes whole, and is
+    written into the local shards."""
     for k, v in cache.items():
-        stack[k][idx].copy_(v)
+        dst = stack[k]
+        if not is_sharded(v):
+            dst[idx].copy_(v)
+            continue
+        from torch.distributed import tensor as dt
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        lead, mesh = dst.ndim - v.ndim, v.device_mesh
+        if not is_sharded(dst):
+            # zeros of this rank's shard, on the stack's device (``meta`` in
+            # the dry run)
+            placements = [dt.Shard(p.dim + lead) if p.is_shard()
+                          else dt.Replicate() for p in v.placements]
+            local, _ = compute_local_shape_and_global_offset(
+                dst.shape, mesh, placements)
+            dst = stack[k] = dt.DTensor.from_local(
+                torch.zeros(local, dtype=dst.dtype, device=dst.device), mesh,
+                placements, run_check=False, shape=dst.shape,
+                stride=dst.stride())
+        mine = [dt.Shard(p.dim - lead) if p.is_shard() else p
+                for p in dst.placements]
+        dst.to_local()[idx].copy_(hint_local(v, mesh, mine))
 
 
 # ======================================================================
@@ -256,8 +295,44 @@ class CodebookHead(nn.Module):
             self.w.normal_(0.0, self.w.shape[1] ** -0.5, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, d) → (B, S, K, V)."""
-        return torch.einsum("bsd,kdv->bskv", x, self.w)
+        """(B, S, d) → (B, S, K, V). Sharded, each rank computes its batch
+        rows' logits of its vocabulary shard (DTensor's einsum would flatten
+        the sharded vocabulary into its product, which torch 2.11
+        refuses); the weight's gradient is then a partial sum over the
+        batch shards, x's over the vocabulary shards."""
+        if not is_sharded(self.w):
+            return torch.einsum("bsd,kdv->bskv", x, self.w)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        from repro_torch.launch.shardings import fitted_placements
+
+        mesh = self.w.device_mesh
+        xp = fitted_placements(("data", None, None), x.shape, mesh)
+        wp = fitted_placements((None, None, "model"), self.w.shape, mesh)
+        pairs = list(zip(xp, wp))      # per mesh dim: x's, w's placement
+        return local_map(
+            lambda a, w: torch.einsum("bsd,kdv->bskv", a, w),
+            out_placements=[Shard(0) if a.is_shard() else Shard(3)
+                            if w.is_shard() else Replicate()
+                            for a, w in pairs],
+            in_placements=(xp, wp),
+            in_grad_placements=([Partial() if w.is_shard() else a
+                                 for a, w in pairs],
+                                [Partial() if a.is_shard() else w
+                                 for a, w in pairs]),
+            device_mesh=mesh, redistribute_inputs=True)(x, self.w)
+
+
+def _scoped(method):
+    """Run an entry point in ``hints.sharded_scope`` of the model's
+    parameters: on a sharded model, the plain tensors the model code makes
+    meet its DTensors as replicated ones."""
+    @functools.wraps(method)
+    def scoped(self, *args, **kwargs):
+        with sharded_scope(self.final_norm.scale):
+            return method(self, *args, **kwargs)
+    return scoped
 
 
 class DecoderLM(nn.Module):
@@ -324,11 +399,16 @@ class DecoderLM(nn.Module):
         """tokens → (B, S, d). Audio sums K codebook embeddings of (B, K, S)
         ids; the VLM prepends the given patch embeddings."""
         if self.cfg.num_codebooks:
-            return self.cb_embed(tokens)
-        x = self.embed(tokens)
+            return hint(self.cb_embed(tokens), "data", None, None)
+        # (a vocab-sharded lookup's partial sums reduced before the cat)
+        x = hint(self.embed(tokens), "data", None, None)
         if self.cfg.mrope and embeds is not None:
             x = torch.cat([embeds.to(x.dtype), x], dim=1)
-        return x
+        # The reference pins the embed output to batch over `data` before
+        # any block (on its mesh the vocab-sharded gather feeding the MLA
+        # scan miscompiled otherwise); here it places the activations as
+        # the batch lies.
+        return hint(x, "data", None, None)
 
     def _lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.num_codebooks:
@@ -374,6 +454,7 @@ class DecoderLM(nn.Module):
 
     # -------------------------------------------------------- entry points
 
+    @_scoped
     def forward_train(self, tokens: torch.Tensor, *,
                       embeds: Optional[torch.Tensor] = None,
                       remat: bool = True):
@@ -438,6 +519,7 @@ class DecoderLM(nn.Module):
         x = self.final_norm(x)
         return self._lm_logits(x), aux
 
+    @_scoped
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, buf_len: Optional[int] = None,
                 embeds: Optional[torch.Tensor] = None):
@@ -489,6 +571,7 @@ class DecoderLM(nn.Module):
         x = self.final_norm(x[:, -1:])
         return self._lm_logits(x), caches
 
+    @_scoped
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: Dict[str, Any],
                     pos: int):

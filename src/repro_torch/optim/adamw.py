@@ -36,10 +36,12 @@ class AdamWConfig:
 def adamw_init(params: Mapping[str, torch.Tensor],
                cfg: AdamWConfig) -> Dict:
     """``{"step": int32 0, "m": zeros, "v": zeros}`` on the parameters'
-    device, the moments in ``cfg.state_dtype``."""
+    device, the moments in ``cfg.state_dtype`` (placed as their parameters
+    where those are DTensors; ``launch.shardings.shard_opt_state`` places
+    ``step``)."""
     device = next(iter(params.values())).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.state_dtype,
+                                       requires_grad=False)
     return {
         "step": torch.zeros((), dtype=torch.int32, device=device),
         "m": {k: zeros(p) for k, p in params.items()},

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.hints import hint_batch, is_sharded, sharded_scope
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.optim import AdamWConfig, adamw_update
 
@@ -60,11 +61,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     parameter the loss does not reach (the audio configs' ``lm_head``)
     gets a zero gradient, as ``jax.grad`` gives it, so weight decay still
     moves it.
+
+    A model that ``launch.shardings.shard_model`` sharded trains the same
+    way, on a batch from ``shard_batch`` and a state from
+    ``shard_opt_state``: each gradient is placed as its parameter before
+    the clip and the update.
     """
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model: DecoderLM, opt_state: Dict,
                    batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        with sharded_scope(model.final_norm.scale):
+            return step(model, opt_state, batch)
+
+    def step(model, opt_state, batch):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -75,7 +85,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
             micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
             lsum = asum = 0.0
             for i in range(accum_steps):
-                mb = {k: v[i] for k, v in micro.items()}
+                # (a sharded micro-batch is placed anew as a batch)
+                mb = {k: hint_batch(v[i]) for k, v in micro.items()}
                 l, pp = loss_fn(model, mb, cfg, remat=remat)
                 l.backward()
                 lsum = lsum + l.detach()
@@ -86,10 +97,29 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
             loss = lsum / accum_steps
             parts = {"ce": loss - asum / accum_steps,
                      "aux": asum / accum_steps}
+        for p in params.values():
+            if p.grad is not None:
+                p.grad = _placed_like(p, p.grad)
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
         om = adamw_update(params, grads, opt_state, opt_cfg, lr_schedule)
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in parts.items()}, **om}
+        return {k: _whole(v.detach()) for k, v in
+                {"loss": loss, **parts, **om}.items()}
 
     return train_step
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's partial sums reduced (its
+    ``item()`` would read this rank's part)."""
+    return x.full_tensor() if is_sharded(x) else x
+
+
+def _placed_like(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A sharded parameter's gradient placed as the parameter (it comes back
+    as the computation left it: partial sums, other shards), so that the
+    clip's norm reduces over every shard once and the update runs on each
+    rank's own shard."""
+    if is_sharded(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g

@@ -162,8 +162,9 @@ def test_adc_table_sel_kernel_equals_plain(cuda, m1, d, pattern):
 
 @pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-# d = 160: f32 boundaries too large for shared memory (read through L2)
-@pytest.mark.parametrize("d", [128, 10, 160])
+# d = 160: f32 boundaries too large for shared memory (read through L2);
+# d = 3,072: an LM embedding's width, past a whole query row per warp
+@pytest.mark.parametrize("d", [128, 10, 160, 3072])
 def test_adc_direct_kernel_equals_plain(cuda, dtype, d, pattern):
     rng = np.random.default_rng(d)
     qt, bnd, codes, sel = _direct_inputs(rng, qn=5, p=3, n_max=400, s=150,
@@ -179,6 +180,58 @@ def test_adc_direct_kernel_equals_plain(cuda, dtype, d, pattern):
     dead = torch.arange(150, device=cuda)[None, None, :] >= keep[:, :, None]
     assert torch.equal(torch.isposinf(got), dead)
     torch.testing.assert_close(got, want, rtol=ADC_RTOL, atol=0)
+
+
+def test_adc_direct_shared_memory_fits_at_any_d(cuda):
+    """Kernel 2b stages whole query rows where eight warps' rows fit a
+    block (at d = 128 as before, with the boundaries beside them), and
+    chunks of the rows past that width, where it asks for the same bytes
+    at any d; never more than an H100 block has."""
+    for dtype, chunked in ((torch.float32, 73_728), (torch.float64, 75_776)):
+        need = {d: adc_lookup.direct_smem_bytes(257, d, dtype)
+                for d in (128, 160, 768, 3072, 12288)}
+        assert max(need.values()) <= adc_lookup.SMEM_LIMIT, need
+        assert need[3072] == need[12288] == chunked, need
+    assert adc_lookup.direct_smem_bytes(257, 128, torch.float32) == (
+        8 * (32 * 68 * 4 + 128 * 8) + 257 * 129 * 4)
+
+
+def test_sharded_train_step_on_card_equals_plain(cuda):
+    """A reduced mamba2 train step on a 1 × 1 NCCL mesh (the model, AdamW
+    state and batch placed by ``launch.shardings``) equals the plain step
+    on the card bit for bit, kernel 6 launched through ``local_map``."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config("mamba2-370m").reduced()
+    plain = T.init_params(cfg, seed=0, device=cuda)
+    sharded = copy.deepcopy(plain)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)
+    want = step(plain, adamw_init(dict(plain.named_parameters()), opt),
+                {"tokens": tokens})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        SH.shard_model(sharded, mesh)
+        state = SH.shard_opt_state(
+            adamw_init(dict(sharded.named_parameters()), opt), sharded, mesh)
+        ops.reset_launch_counts()
+        got = step(sharded, state, SH.shard_batch({"tokens": tokens}, mesh))
+        launches = ops.launch_counts()["ssd_intra"]
+        params = [p.full_tensor() for p in sharded.parameters()]
+    finally:
+        torch.distributed.destroy_process_group()
+    assert launches == 2 * cfg.num_layers
+    assert float(got["loss"]) == float(want["loss"])
+    for p, q in zip(plain.parameters(), params):
+        assert torch.equal(p.detach(), q)
 
 
 def test_wrappers_reject_malformed_input(cuda):

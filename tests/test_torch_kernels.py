@@ -152,9 +152,21 @@ def _keep(rng, qn, p, s, pattern):
 def test_adc_direct_ref_equals_jax(dtype, pattern):
     """Live slots equal the JAX package's ``adc_lb_direct``; dead slots
     (s ≥ keep) are +inf."""
+    _check_direct_ref(dtype, pattern, d=10)
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "dead", "whole"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_adc_direct_ref_equals_jax_at_embedding_width(dtype, pattern):
+    """The same at d = 3,072, an LM embedding's width (the RAG index's),
+    where the CUDA kernel's shared memory once outgrew a block."""
+    _check_direct_ref(dtype, pattern, d=3072)
+
+
+def _check_direct_ref(dtype, pattern, d):
     rng = np.random.default_rng(21)
     qt, bnd, codes, sel = _direct_inputs(rng, qn=4, p=3, n_max=50, s=12,
-                                         d=10, m1=17, dtype=dtype)
+                                         d=d, m1=17, dtype=dtype)
     keep = _keep(rng, 4, 3, 12, pattern)
     qcell = np.asarray(jdp.query_cells(jnp.asarray(qt), jnp.asarray(bnd)))
     kept = codes[np.arange(3)[None, :, None], sel]          # (Q, P, S, d)
@@ -189,3 +201,16 @@ def test_cpu_dispatch_launches_no_kernel():
                   torch.zeros((1, 2, 3), dtype=torch.int64),
                   torch.tensor([[1, 3]], dtype=torch.int32))
     assert ops.launch_counts() == before
+
+
+def test_adc_direct_shared_memory_guard_names_the_sizes():
+    """Kernel 2b's wrapper refuses, before the launch, a size whose block
+    would need more shared memory than an H100 block has; it names d,
+    M+1 and the limit. (What the card's library asks for at each size is
+    held on the card: its rows are staged a chunk at a time, so it does
+    not grow with d.)"""
+    from repro_torch.kernels import adc_lookup
+
+    adc_lookup.check_direct_smem(adc_lookup.SMEM_LIMIT, 257, 3072)
+    with pytest.raises(ValueError, match=r"d=3072, M\+1=257.*232448"):
+        adc_lookup.check_direct_smem(adc_lookup.SMEM_LIMIT + 1, 257, 3072)
