@@ -8,6 +8,23 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (sm_90a), then drives the port's paths on the card:
 
+* Lint: the port's squashlint (``repro_torch.analysis.main(["--strict",
+  "--json"])``) over the checkout, with an empty baseline: fails on any
+  new finding; prints the findings by rule and, by rule, the findings a
+  justified pragma suppresses.
+* Sync audit: three paths under ``torch.cuda.set_sync_debug_mode("warn")``,
+  each sync charged to the innermost frame under ``src/repro_torch``
+  (``sync_sites``): (b) mamba2-370m ``Engine.generate`` at 1 × 512 + 8 new
+  tokens on the LM check's model (kernel 6 in its prefill), (c) one
+  ``make_train_step`` step at 2 × 512 on it, after the LM phases below,
+  and (a) one Path A batch of ``search(backend="torch")`` in float32
+  without the ``mark`` hook (kernels 1 and 2b), after the search paths.
+  Each prints ``{"sync_audit": {"path", "sites", "in_scope",
+  "unflagged", ...}}`` and fails when a sync inside the analyzer's
+  ``SYNC_SCOPE`` lies on a line its ``device-sync`` rule does not flag
+  and ``SYNC_UNSEEN`` does not list with its reason, when a kernel of the
+  path does not launch, or (b) when the audit does not see each decode
+  step's token copy. Syncs outside the scope are printed, not held.
 * LM check: ``mamba2-370m`` at full width and depth (48 layers, d_model
   1024, vocab 50,280; random weights from a seed, drawn on the CPU and
   copied to the card) on 1 request of 512 tokens (2 chunks of 256) plus 8
@@ -2857,6 +2874,229 @@ def check_ssd(ssd_shapes):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------- lint and the sync audit
+
+# Syncs the card takes inside the analyzer's SYNC_SCOPE on lines that its
+# ``device-sync`` rule does not flag: "path:line" (under src/repro_torch)
+# → the text that line holds and why the rule cannot see the sync there.
+SYNC_UNSEEN = {
+    "optim/adamw.py:100": {
+        "line": '"lr": torch.as_tensor(lr, dtype=torch.float32,',
+        "why": "`lr` is `cfg.lr` (a Python float) or the schedule's value "
+               "(a tensor), one expression; the rule cannot tell which, and "
+               "a float's `torch.as_tensor(..., device=)` is a blocking "
+               "copy to the card, once per step"},
+}
+SYNC_AUDIT_LM = (1, 512, 8)        # requests, prompt tokens, new tokens
+SYNC_AUDIT_TRAIN = (2, 512)        # batch, tokens: train_check's shape
+
+
+def lint_phase():
+    """The port's squashlint (``python -m repro_torch.analysis --strict
+    --json``) over the checkout: fails on any new finding. Reports the
+    findings by rule and, by rule, the findings a justified pragma
+    suppresses."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.analysis import runner
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = runner.main(["--strict", "--json"])
+    report, _ = json.JSONDecoder().raw_decode(out.getvalue())
+    by_rule = {}
+    for line in report["new"] + report["baselined"]:
+        rule = re.search(r": \[([a-z-]+)\] ", line).group(1)
+        by_rule[rule] = by_rule.get(rule, 0) + 1
+    suppressed = {}
+    for f in runner.unsuppressed_findings():
+        suppressed[f.rule] = suppressed.get(f.rule, 0) + 1
+    suppressed = {rule: n - by_rule.get(rule, 0)
+                  for rule, n in sorted(suppressed.items())}
+    emit({"phase": "lint", "rc": rc, "new": len(report["new"]),
+          "baselined": len(report["baselined"]),
+          "stale_baseline": report["stale_baseline"],
+          "findings_by_rule": by_rule, "pragma_suppressed_by_rule":
+          suppressed, "seconds": time.perf_counter() - t0})
+    if rc != 0 or report["new"]:
+        raise AssertionError(f"lint: squashlint exits {rc} with new findings "
+                             f"{report['new']}")
+
+
+def flagged_sync_lines() -> set:
+    """"path:line" of every line the ``device-sync`` rule flags, those a
+    pragma justifies included."""
+    from repro_torch.analysis import runner
+
+    return {f"{f.path}:{f.line}" for f in runner.unsuppressed_findings()
+            if f.rule == "device-sync"}
+
+
+def in_sync_scope(site: str) -> bool:
+    from repro_torch.analysis.runner import SYNC_SCOPE
+
+    rel = site.rsplit(":", 1)[0]
+    return any(rel == s or rel.startswith(s) for s in SYNC_SCOPE)
+
+
+def _site(frame) -> str:
+    """"path:line" of a frame: under ``src/repro_torch`` for the port,
+    under the checkout for the rest of it, under ``site-packages`` for an
+    installed package."""
+    path = os.path.abspath(frame.filename)
+    port = os.path.join(REPO, "src", "repro_torch") + os.sep
+    if path.startswith(port):
+        rel = os.path.relpath(path, port)
+    elif path.startswith(REPO + os.sep):
+        rel = os.path.relpath(path, REPO)
+    elif "site-packages" + os.sep in path:
+        rel = path.split("site-packages" + os.sep, 1)[1]
+    else:
+        rel = os.path.basename(path)
+    return rel.replace(os.sep, "/") + f":{frame.lineno}"
+
+
+def sync_sites(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    sync the card takes, charged to the innermost frame under
+    ``src/repro_torch`` ("path:line" under it). A sync with no frame of
+    the port on the stack is charged to its innermost frame and the one
+    that called it ("site < caller"). Returns (sites → count, fn's
+    result)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    port = os.path.join(REPO, "src", "repro_torch") + os.sep
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.basename(f.filename) != "warnings.py"]
+        ours = [f for f in stack if os.path.abspath(f.filename)
+                .startswith(port)]
+        site = (_site(ours[-1]) if ours else
+                " < ".join(_site(f) for f in stack[-2:][::-1]))
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sorted(sites.items())), out
+
+
+def sync_audit(path, fn, kernels, flagged, expect=None):
+    """One path's syncs: every site inside SYNC_SCOPE must be on a line
+    ``device-sync`` flags or in ``SYNC_UNSEEN``; the path must launch each
+    of ``kernels``; ``expect`` ("path:line" → count) are sites the audit
+    must see, so that it is known to reach the port's frames."""
+    from repro_torch.kernels import ops
+
+    stale = {site: entry["line"] for site, entry in SYNC_UNSEEN.items()
+             if entry["line"] not in _port_text(site)}
+    if stale:
+        raise AssertionError(f"SYNC_UNSEEN names lines that no longer hold "
+                             f"their text: {stale}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sites, _ = sync_sites(fn)
+    seconds = time.perf_counter() - t0
+    launches = {name: ops.launch_counts()[name] for name in kernels}
+    in_scope = {s: n for s, n in sites.items() if in_sync_scope(s)}
+    unflagged = [s for s in in_scope if s not in flagged
+                 and s not in SYNC_UNSEEN]
+    emit({"sync_audit": {
+        "path": path, "syncs": sum(sites.values()), "sites": sites,
+        "in_scope": in_scope, "unflagged": unflagged,
+        "unseen": {s: SYNC_UNSEEN[s]["why"] for s in in_scope
+                   if s in SYNC_UNSEEN},
+        "out_of_scope": {s: n for s, n in sites.items() if s not in in_scope},
+        "launches": launches, "seconds": seconds}})
+    missed = {s: (n, sites.get(s, 0)) for s, n in (expect or {}).items()
+              if sites.get(s, 0) != n}
+    if missed:
+        raise AssertionError(f"sync_audit {path}: expected syncs (want, got) "
+                             f"{missed}: the audit does not see them")
+    if unflagged:
+        raise AssertionError(f"sync_audit {path}: syncs inside SYNC_SCOPE "
+                             f"on lines device-sync does not flag: "
+                             f"{unflagged}")
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"sync_audit {path}: kernels {idle} never "
+                             "launched")
+
+
+def _port_text(site) -> str:
+    """The text of the line a "path:line" site under ``src/repro_torch``
+    names ("" past the file's end)."""
+    rel, line = site.rsplit(":", 1)
+    with open(os.path.join(REPO, "src", "repro_torch", rel),
+              encoding="utf-8") as fh:
+        lines = fh.read().splitlines()
+    return lines[int(line) - 1] if int(line) <= len(lines) else ""
+
+
+def _port_line(rel, text):
+    """"rel:line" of the first line of ``src/repro_torch/rel`` that holds
+    ``text``."""
+    with open(os.path.join(REPO, "src", "repro_torch", rel),
+              encoding="utf-8") as fh:
+        for i, line in enumerate(fh, start=1):
+            if text in line:
+                return f"{rel}:{i}"
+    raise AssertionError(f"{rel} holds no line with {text!r}")
+
+
+def sync_audit_lm(model, flagged):
+    """Audit paths (b) and (c): ``Engine.generate`` of mamba2-370m at 1 ×
+    512 + 8 new tokens (kernel 6 in its prefill), then one
+    ``make_train_step`` step at 2 × 512 (which updates ``model``)."""
+    import numpy as np
+
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train import make_train_step
+
+    cfg = model.cfg
+    requests, prompt_len, new_tokens = SYNC_AUDIT_LM
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (requests, prompt_len), dtype=np.int32)
+    engine = Engine(cfg, model, ServeConfig(max_new_tokens=new_tokens))
+    token_copy = _port_line("serve/engine.py", "outs.append(tok.cpu())")
+    sync_audit("lm_generate", lambda: engine.generate(prompts),
+               ["ssd_intra"], flagged, expect={token_copy: new_tokens - 1})
+    opt = AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    state = adamw_init(dict(model.named_parameters()), opt)
+    batch = make_batch(cfg, *SYNC_AUDIT_TRAIN, 0, "cuda")
+    sync_audit("train_step", lambda: step(model, state, batch),
+               ["ssd_intra"], flagged)
+
+
+def sync_audit_search(index, queries, preds, flagged):
+    """Audit path (a): one Path A batch of ``search(backend="torch")`` in
+    float32, without the ``mark`` hook (its CUDA events would sync)."""
+    import torch
+
+    sync_audit("path_a_search",
+               lambda: search_torch(index, queries, preds, torch.float32),
+               ["hamming_stacked", "adc_direct"], flagged)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -2912,10 +3152,14 @@ def run_phases(args, card, t_start, dryruns) -> int:
     from repro_torch.core.pipeline import SquashConfig
     from repro_torch.data import synthetic
 
+    lint_phase()
+    flagged = flagged_sync_lines()
     lm_model = lm_check()
     lm_launches = lm_serve(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
     lm_profile(lm_model, LM_REQUESTS, LM_PROMPT_LEN)
+    sync_audit_lm(lm_model, flagged)
     del lm_model
+    torch.cuda.empty_cache()
     zamba_launches, zamba_shape = lm_families()
     lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
     train_check()
@@ -2959,6 +3203,7 @@ def run_phases(args, card, t_start, dryruns) -> int:
     launches_b, _ = run_path("path_b", ds, args.rows_b, index_b, preds,
                              check_f32=False,
                              timed_batches=args.timed_batches)
+    sync_audit_search(index_a, ds.queries.astype("float64"), preds, flagged)
 
     packed_a, extract_launches = extract_path(index_a)
 

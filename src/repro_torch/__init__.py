@@ -12,6 +12,8 @@ The port imports ``torch`` and numpy only — never ``jax`` and nothing of
 * ``repro_torch.data`` — the synthetic attributed-vector datasets.
 * ``repro_torch.serve`` — the vector-search service facade and the
   language-model serving ``Engine``.
+* ``repro_torch.analysis`` — squashlint for the port (pure ``ast``: needs
+  neither torch nor numpy), ``python -m repro_torch.analysis``.
 * ``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.launch`` —
   the LM substrate ported so far: ``mamba2-370m`` (Mamba2 mixer, decoder,
   ``python -m repro_torch.launch.serve``).

@@ -143,7 +143,7 @@ def _tensor(name: str, arr: np.ndarray, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
     if name == "low_packed":
         arr = arr.view(np.int32)        # uint32 bits, seen as int32
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).to(device)  # squash: ignore[device-sync] -- the stacked index's one upload to the card, made when the index is stacked (cached per dtype and device)
 
 
 def stack_single_part(arrays: Dict[str, np.ndarray],

@@ -123,12 +123,12 @@ def make_search_fn(
             for name in StackedIndex.__dataclass_fields__})
         dev = stacked.device
         ids, dists = dataplane.batched_stage345(
-            torch.as_tensor(queries[rows]).to(
+            torch.as_tensor(queries[rows]).to(  # squash: ignore[device-sync] -- this rank's slice of the batch's host inputs goes to the card once per batch
                 device=dev, dtype=stacked.vectors.dtype),
             local,
-            torch.as_tensor(cand_mask[rows, lo:lo + ps]).to(dev),
-            torch.as_tensor(keep[rows, lo:lo + ps]).to(dev),
-            torch.as_tensor(take[rows, lo:lo + ps]).to(dev),
+            torch.as_tensor(cand_mask[rows, lo:lo + ps]).to(dev),  # squash: ignore[device-sync] -- this rank's slice of the batch's host inputs goes to the card once per batch
+            torch.as_tensor(keep[rows, lo:lo + ps]).to(dev),  # squash: ignore[device-sync] -- this rank's slice of the batch's host inputs goes to the card once per batch
+            torch.as_tensor(take[rows, lo:lo + ps]).to(dev),  # squash: ignore[device-sync] -- this rank's slice of the batch's host inputs goes to the card once per batch
             k=k, keep_s=keep_s, take_s=take_s, refine=refine,
         )                                                       # (Qs, k)
         # Single-pass MPI-style reduce over the model axis (§2.4.5): the
@@ -198,5 +198,5 @@ def distributed_search(
     ids, dists = search(torch.from_numpy(queries), torch.from_numpy(cand_mask),
                         torch.from_numpy(keep), torch.from_numpy(take),
                         stacked)
-    return (ids[:qn].cpu().numpy().astype(np.int64),
-            dists[:qn].cpu().numpy().astype(np.float64))
+    return (ids[:qn].cpu().numpy().astype(np.int64),  # squash: ignore[device-sync] -- the results' copy to the host is the answer the caller asked for
+            dists[:qn].cpu().numpy().astype(np.float64))  # squash: ignore[device-sync] -- the results' copy to the host is the answer the caller asked for

@@ -66,8 +66,8 @@ def _plan(bits: Tuple[int, ...], seg_bits: int, device: torch.device):
               for plan in plans for pc in plan]
     starts = np.cumsum([0] + [len(plan) for plan in plans])
     table = np.asarray(pieces, dtype=np.int32).reshape(-1, 4)
-    return (torch.from_numpy(table).to(device),
-            torch.from_numpy(starts.astype(np.int32)).to(device))
+    return (torch.from_numpy(table).to(device),  # squash: ignore[device-sync] -- the plan's one upload to the card, cached by bit widths
+            torch.from_numpy(starts.astype(np.int32)).to(device))  # squash: ignore[device-sync] -- the plan's one upload to the card, cached by bit widths
 
 
 def extract_codes(segments: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:

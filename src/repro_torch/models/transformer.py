@@ -713,7 +713,7 @@ def from_jax_opt_state(state: Mapping[str, Any], cfg: ArchConfig,
     (the shared block of the hybrid schedule once). On ``device`` (default
     the card; raises without CUDA)."""
     dev = _resolve_device(device)
-    return {"step": torch.tensor(np.asarray(state["step"]),
+    return {"step": torch.tensor(np.asarray(state["step"]),  # squash: ignore[device-sync] -- a one-time conversion of the reference's optimizer state onto the card
                                  dtype=torch.int32, device=dev),
             **{part: {k: v.to(dev) for k, v in
                       _state_from_jax(state[part], cfg).items()}

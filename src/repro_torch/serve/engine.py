@@ -115,9 +115,9 @@ class Engine:
         if sc.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(sc.seed)
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,  # squash: ignore[device-sync] -- the prompts' one upload to the card per generate call
                                  device=self.device)
-        emb = (None if embeds is None else torch.as_tensor(
+        emb = (None if embeds is None else torch.as_tensor(  # squash: ignore[device-sync] -- the patch embeddings' one upload to the card per generate call
             np.asarray(embeds), dtype=torch.float32, device=self.device))
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(
@@ -130,16 +130,16 @@ class Engine:
             caches = dequantize_caches(qc, meta)
             del qc, meta
         tok = self._sample(logits[:, 0], gen)            # (B,) or (B, K)
-        outs = [tok.cpu()]                   # waits for the prefill
+        outs = [tok.cpu()]  # squash: ignore[device-sync] -- the sampled token's copy to the host is the output; it waits for the prefill
         t1 = time.perf_counter()
         for i in range(n_new - 1):
             step_tok = tok[:, :, None] if audio else tok[:, None]
             logits, caches = self.model.decode_step(step_tok, caches,
                                                     prefix + s0 + i)
             tok = self._sample(logits[:, 0], gen)
-            outs.append(tok.cpu())
+            outs.append(tok.cpu())  # squash: ignore[device-sync] -- the sampled token's copy to the host is the output; it waits for the step
         t2 = time.perf_counter()
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": n_new - 1}
         self.last_cache_bytes = sizes
-        return torch.stack(outs, dim=-1).numpy().astype(np.int32)
+        return torch.stack(outs, dim=-1).numpy().astype(np.int32)  # squash: ignore[device-sync] -- no sync: `outs` holds tensors already copied to the host, which a syntactic rule cannot tell from card tensors

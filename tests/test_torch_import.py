@@ -82,7 +82,7 @@ def test_port_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 61      # every module of all slices
+    assert int(out.stdout.strip()) >= 88      # every module of all slices
 
 
 # The modules of the live index and the serverless runtime, at the
@@ -103,9 +103,9 @@ SLICE6_MODULES = [
     "core/distributed.py", "core/hnsw.py", "obs/timeline.py", "obs/top.py"]
 
 
-def _stands_beside_its_reference(rel):
+def _stands_beside_its_reference(rel, ref=None):
     assert os.path.isfile(os.path.join(PORT, rel))
-    assert os.path.isfile(os.path.join(REPO, "src", "repro", rel))
+    assert os.path.isfile(os.path.join(REPO, "src", "repro", ref or rel))
     roots = set(_imported_roots(os.path.join(PORT, rel)))
     assert "jax" not in roots and "repro" not in roots, roots
 
@@ -115,6 +115,16 @@ SLICE8_MODULES = [
     "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
     "train/__init__.py", "train/steps.py", "checkpoint/__init__.py",
     "checkpoint/store.py", "launch/train.py"]
+
+
+# The port's squashlint, at the reference's paths; its device-sync checker
+# takes the place of the reference's jit-hygiene one.
+SLICE10_MODULES = [
+    ("analysis/__init__.py", None), ("analysis/__main__.py", None),
+    ("analysis/runner.py", None), ("analysis/source.py", None),
+    ("analysis/findings.py", None), ("analysis/locks.py", None),
+    ("analysis/determinism.py", None), ("analysis/wire.py", None),
+    ("analysis/sync.py", "analysis/jit.py")]
 
 
 @pytest.mark.parametrize("rel", SLICE5_MODULES)
@@ -130,6 +140,12 @@ def test_slice6_module_stands_beside_its_reference(rel):
 @pytest.mark.parametrize("rel", SLICE8_MODULES)
 def test_slice8_module_stands_beside_its_reference(rel):
     _stands_beside_its_reference(rel)
+
+
+@pytest.mark.parametrize("rel,ref", SLICE10_MODULES,
+                         ids=[rel for rel, _ in SLICE10_MODULES])
+def test_slice10_module_stands_beside_its_reference(rel, ref):
+    _stands_beside_its_reference(rel, ref)
 
 
 @pytest.mark.parametrize("path", list(_port_files()),
