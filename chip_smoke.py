@@ -65,6 +65,39 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   tokens the two runs agree on; then one prefill and one decode step of
   the same model under ``torch.profiler``. Each model is freed before the
   next phase.
+* LM bf16: the reference's production dtype at full size. The profiled
+  llama3-8b (f32, seed 0) keeps the f32 last-token logits of its
+  profiled 8 × 2,048 prefill, then moves to bf16 in place
+  (``DecoderLM.to_dtype``, which is ``init_params(dtype=torch.bfloat16)``:
+  weights 16.06 GB against 32.1 GB; the f32 params it keeps are listed),
+  and its bf16 logits must lie within ``BF16_TOL["llama3-8b"]`` = 3.1e-2
+  of the largest |f32 logit| from the f32 ones. Each model's limit is a
+  stated multiple of the reference's own bf16-vs-f32 gap at that model's
+  full width, which ``tests/test_torch_bf16.py`` reads on the CPU and
+  holds the limit to: llama3-8b 2 × 1.60e-2 (2 of its 32 layers, 1 × 128
+  tokens; twice, for the depth the card adds), mamba2-370m 1.5 × 0.688
+  (all 48 layers, 1 × 512 tokens). Lower and upper readings on the card
+  (``tools/bf16_gaps.py``): llama3-8b reads 2.26e-2 as shipped, 0.494
+  with the rotary angles in bf16 (refused), but 2.47e-2 with attention's
+  scores in bf16 and 2.63e-2 with RMSNorm in bf16, which this gate
+  cannot tell from the model as shipped. So GQA attention is gated apart
+  (``bf16_attention``): on seeded bf16 inputs at llama3-8b's heads, 1 ×
+  2,048, at least ``BF16_ATTN_EQUAL`` = 99 % of its outputs equal an f64
+  model of the reference's precision bit for bit, none off by more than
+  one bf16 step of the largest (as shipped 99.92 % and 1.6e-3; bf16
+  scores 15.2 % and 1.3e-2, refused).
+  Then ``Engine.generate`` in
+  bf16 at 8 × 2,048 + 32 tokens with ``kv_bits`` 0 and 8: prefill ms,
+  decode ms a step, peak memory, cache bytes fp and packed, and the share
+  of greedy tokens equal to the f32 model's (LM serve llama3's fp run).
+  A bf16 prefill and decode step are profiled. Then mamba2-370m at full
+  size (f32 drawn on the card, seed 0) the same way on an 8 × 2,048
+  prefill, within ``BF16_TOL["mamba2-370m"]`` = 1.03: random-weight
+  mamba2 drifts far in bf16 at 48 layers in either framework (as shipped
+  0.448; the same weights at 1 × 512 read 0.491 on the card, 0.428 on the
+  CPU), so this limit catches only gross faults (its mixers' f32 scalars
+  rounded read 0.530, inside it). The bf16 prefill casts the SSD inputs
+  to f32 and must launch kernel 6 once per layer (48).
 * Train check: ``mamba2-370m`` at full size, weights drawn on the card and
   copied to the CPU, one ``train.make_train_step`` step (AdamW, remat) on
   a seeded 2 × 512-token batch on the CPU and on the card: loss, ce and
@@ -132,11 +165,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   recall@10 against brute-force filtered ground truth must be within 0.005
   of the NumPy backend's. Then 5 timed batches per float width.
 * Path B (the table kernel): the same 1,000,000 rows with
-  ``max_bits_per_dim=5`` (M+1 = 33); float64 ids must equal NumPy's. Its
-  host index build runs in a spawned worker process beside Path A's, so
-  the two builds take the time of the longer one. Both paths' timed
+  ``max_bits_per_dim=5`` (M+1 = 33); float64 ids must equal NumPy's. The
+  two host index builds run in spawned worker processes, started after LM
+  serve llama3 and LM bf16, beside the training, sharded and RAG phases
+  (which keep the card busy), and are collected after them; the line of
+  Path B's build reports the seconds the script still waited for them.
+  Both paths' timed
   batches report each stage's device time and the most device memory a
   batch adds to what is resident at its start.
+* Warmup: ``VectorSearchService(backend="torch").warmup(64)`` on Path
+  A's index with its f32 stack dropped (a freshly bound index), under the
+  sync audit: the 11 uploads of the stack (``core/dataplane.py``'s
+  ``_tensor``, one per field) must happen inside ``warmup``, and the next
+  batch through the service must take a stacked batch's 6 syncs; its ids,
+  dists and stats must equal a batch's on the index without warmup.
 * Segment extraction: every Path A partition's packed segments through
   ``kernels.ops.extract_codes`` on the card must equal its stored codes
   exactly.
@@ -191,7 +233,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   destroyed after), on Path A (kernels 1 and 2b) and Path B before the
   live phase mutates it (kernels 1 and 2): float64 ids and dists must
   equal ``index.search(backend="torch")``; both batch walls are reported
-  beside the torch backend's.
+  beside the torch backend's. Then each path on a 1 × 1 × 1 NCCL mesh
+  named ``("pod", "data", "model")`` (``launch.mesh``'s multi-pod layout)
+  with ``data_axes=("pod", "data")``: ids and dists must equal the 1 × 1
+  mesh's.
 * Live: Path B's index wrapped in a ``LiveIndex``; 10,000 rows from the
   dataset generator at seed 1 inserted and 1 % of all ids deleted; the
   card's float64 ids must equal the NumPy backend's with no tombstoned id
@@ -202,9 +247,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
   compaction and restack seconds are reported.
 
 Launch counters are set to 0 just before each path (LM serve, each LM
-family's card prefill and generation, the train run, the sharded train
-step and train run, the RAG search, each search path, the extraction,
-the serverless local run, each mesh search, the live phase) and read just
+family's card prefill and generation, the bf16 mamba2-370m prefill, the
+train run, the sharded train step and train run, the RAG search, each
+search path, the warmup and the batch after it, the extraction, the
+serverless local run, each mesh search, the live phase) and read just
 after; every kernel must have launched on the path that runs it.
 Every
 check raises on failure, so the script exits non-zero. The last lines are a
@@ -242,6 +288,10 @@ SLICE_Q = 8                    # queries of the direct kernel's plain check
 LM_ARCH = "mamba2-370m"
 LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS = 8, 2048, 32
 LM_TOL = 5e-3                  # of the largest |value|: see the docstring
+BF16_TOL = {"llama3-8b": 3.1e-2,  # of the largest |f32 logit|: see the
+             "mamba2-370m": 1.03}  # docstring
+BF16_ATTN_EQUAL = 0.99         # share of bf16 attention outputs = f64 model's
+BF16_STEP = 2.0 ** -8          # one bf16 step at a value in [1, 2)
 SSD_RTOL, SSD_ATOL_SCALE = 1e-4, 1e-5
 SSD_GRAD_RTOL, SSD_GRAD_ATOL_SCALE = 1e-4, 1e-5
 SPIN_CYCLES = 100_000_000      # ~50 ms of the card ahead of timed launches
@@ -291,28 +341,31 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn()`` with its launches queued behind
     a spin of the card, so the kernels run back to back and the host's time
-    between them stays hidden. Fails if the host took longer to queue the
-    launches than the spin lasted."""
+    between them stays hidden. Where the host took longer to queue the
+    launches than the spin lasted (a host busy with the index builds), the
+    reading is dropped and taken again behind a spin four times as long;
+    fails if the longest spin is still too short."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    spin = torch.cuda.Event(enable_timing=True)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    spin.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    if host_ms >= spin.elapsed_time(start):
-        raise AssertionError(f"queueing {reps} calls took {host_ms:.1f} ms, "
-                             "longer than the spin ahead of them")
-    return start.elapsed_time(end) / reps
+    for cycles in (SPIN_CYCLES, 4 * SPIN_CYCLES, 16 * SPIN_CYCLES):
+        spin = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+    raise AssertionError(f"queueing {reps} calls took {host_ms:.1f} ms, "
+                         "longer than the spin ahead of them")
 
 
 def bound(nbytes: float, ops: float, tf32x3_ops: float = 0.0):
@@ -875,9 +928,11 @@ def mesh_phase(index_a, index_b, queries, preds):
     """``repro_torch.core.distributed.distributed_search`` on a 1 × 1 NCCL
     mesh on the card (its process group on a free loopback port, destroyed
     after): on Path A (kernels 1 and 2b) and Path B (kernels 1 and 2), in
-    f64, ids and dists must equal ``index.search(backend="torch")``. The
-    counts are set to 0 just before each mesh search and read just after;
-    returns their sum over both paths."""
+    f64, ids and dists must equal ``index.search(backend="torch")``; then
+    on a 1 × 1 × 1 mesh named ``("pod", "data", "model")`` (the multi-pod
+    layout) with ``data_axes=("pod", "data")``, ids and dists must equal the
+    1 × 1 mesh's. The counts are set to 0 just before each mesh search of
+    either mesh and read just after; returns their sum over both paths."""
     import socket
 
     import numpy as np
@@ -896,7 +951,7 @@ def mesh_phase(index_a, index_b, queries, preds):
                             rank=0, world_size=1)
     out = {"phase": "mesh", "mesh": [1, 1], "backend": dist.get_backend(),
            "Q": int(queries.shape[0]), "k": K}
-    total = None
+    total, answers = None, {}
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
@@ -932,10 +987,37 @@ def mesh_phase(index_a, index_b, queries, preds):
                                          "launched")
             total = counts if total is None else {
                 k: total[k] + counts[k] for k in total}
+            answers[name] = ids, dists
             out[name] = {"batch_wall_ms": [mesh_ms, mesh_ms2],
                          "torch_backend_batch_wall_ms": [torch_ms, torch_ms2],
                          "ids_dists_equal_torch_backend": True,
                          "launches": counts}
+        # The multi-pod layout (launch.mesh), queries over (pod, data).
+        pod = init_device_mesh("cuda", (1, 1, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+        for name, index, stage4 in (("path_a", index_a, "adc_direct"),
+                                    ("path_b", index_b, "adc_batch")):
+            ops.reset_launch_counts()
+            (ids, dists), pod_ms = timed(lambda: with_dtype(
+                f64, lambda: distributed_search(index, queries, preds, K,
+                                                mesh=pod,
+                                                data_axes=("pod", "data"))))
+            counts = ops.launch_counts()
+            if not (np.array_equal(ids, answers[name][0])
+                    and np.array_equal(dists, answers[name][1])):
+                raise AssertionError(f"mesh {name}: the (pod, data, model) "
+                                     "mesh's ids or dists differ from the "
+                                     "(data, model) mesh's")
+            for kernel in ("hamming_stacked", stage4):
+                if counts[kernel] <= 0:
+                    raise AssertionError(f"mesh {name} (pod, data, model): "
+                                         f"{kernel} never launched")
+            total = {k: total[k] + counts[k] for k in total}
+            out[name]["pod_data_model"] = {
+                "mesh": [1, 1, 1], "data_axes": ["pod", "data"],
+                "batch_wall_ms": pod_ms,
+                "ids_dists_equal_data_model_mesh": True,
+                "launches": counts}
     finally:
         dist.destroy_process_group()
     emit(out)
@@ -1168,7 +1250,8 @@ def _device_kernels(prof):
 
 
 def _split(rows):
-    """Device ms by class: matrix products (cuBLAS / CUTLASS GEMMs), kernel
+    """Device ms by class: matrix products (cuBLAS / CUTLASS GEMMs, and
+    the ``nvjet`` kernels cuBLAS runs bf16 products with on Hopper), kernel
     6, and elementwise passes and copies (everything else), with the share
     of the last in PyTorch's non-vectorized (strided) elementwise kernel."""
     out = {"matrix_products": 0.0, "ssd_intra": 0.0,
@@ -1178,7 +1261,7 @@ def _split(rows):
         if "ssd_intra" in low:
             out["ssd_intra"] += us / 1e3
         elif any(k in low for k in ("gemm", "gemv", "cutlass", "xmma",
-                                    "cublas")):
+                                    "cublas", "nvjet")):
             out["matrix_products"] += us / 1e3
         else:
             out["elementwise_and_copies"] += us / 1e3
@@ -1189,7 +1272,8 @@ def _split(rows):
 
 def lm_profile(model, requests: int, prompt_len: int):
     """Device time by kernel of one prefill and of one decode step at the
-    serve shape (``torch.profiler``), beside their host-clock times."""
+    serve shape (``torch.profiler``), beside their host-clock times.
+    Returns the prefill's tokens and last-token logits."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1200,6 +1284,7 @@ def lm_profile(model, requests: int, prompt_len: int):
     logits, caches = model.prefill(tokens, buf_len=buf_len)  # warm-up
     model.decode_step(logits[:, 0].argmax(-1)[:, None], caches, prompt_len)
     result = {"phase": "lm_profile", "arch": model.cfg.name,
+              "dtype": str(model.final_norm.scale.dtype).split(".")[-1],
               "requests": requests, "prompt_len": prompt_len}
     for step in ("prefill", "decode_step"):
         torch.cuda.synchronize()
@@ -1222,6 +1307,7 @@ def lm_profile(model, requests: int, prompt_len: int):
             "top_kernels": [{"name": k[:100], "ms": us / 1e3, "count": n}
                             for us, n, k in rows[:12]]}
     emit(result)
+    return tokens, logits
 
 
 def lm_serve(requests: int, prompt_len: int, new_tokens: int):
@@ -1460,10 +1546,191 @@ def lm_serve_llama3(requests: int, prompt_len: int, new_tokens: int):
           "token_agreement_kv8_vs_fp": float(np.mean(tokens[0] == tokens[8])),
           "first_divergence": _first_divergence(tokens[0], tokens[8])})
     model = T.init_params(get_config(LLAMA3_SERVE), seed=0, device="cuda")
-    lm_profile(model, requests, prompt_len)
+    profiled = lm_profile(model, requests, prompt_len)
+    bf16_launches = lm_bf16(model, profiled, tokens[0], requests,
+                            prompt_len, new_tokens)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return bf16_launches
+
+
+def _param_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def bf16_gap(logits_b, logits_f) -> dict:
+    """bf16 last-token logits against the f32 ones of the same weights: the
+    largest gap over the largest |f32 logit|, finiteness and the share of
+    equal greedy tokens."""
+    import torch
+
+    lb, lf = logits_b.float(), logits_f.float()
+    return {"rel_gap_bf16_vs_f32": float((lb - lf).abs().max()
+                                         / lf.abs().max()),
+            "max_abs_f32_logit": float(lf.abs().max()),
+            "finite": bool(torch.isfinite(lb).all()),
+            "first_token_agreement": float(
+                (lb.argmax(-1) == lf.argmax(-1)).float().mean())}
+
+
+def _bf16_gate(name, logits_b, logits_f) -> dict:
+    """``bf16_gap`` of ``name``'s logits, within ``BF16_TOL[name]``."""
+    out = {"tolerance": f"max |bf16 - f32| <= {BF16_TOL[name]} * max |f32| "
+                        "(last-token logits)", **bf16_gap(logits_b, logits_f)}
+    gap = out["rel_gap_bf16_vs_f32"]
+    if not (out["finite"] and gap <= BF16_TOL[name]):
+        emit({"phase": "lm_bf16", "failed": name, **out})
+        raise AssertionError(f"lm_bf16 {name}: bf16 logits lie {gap} of the "
+                             f"largest f32 logit from the f32 ones (> "
+                             f"{BF16_TOL[name]}) or are not finite")
+    return out
+
+
+def bf16_attention(seq: int) -> dict:
+    """GQA prefill attention (``attention._attend``) on the card, on seeded
+    bf16 q, k, v at llama3-8b's heads (1 × ``seq``, 32 query and 8 kv heads
+    of 128), against a plain f64 model of the reference's precision on the
+    same inputs (scores, softmax and sums exact, the probabilities rounded
+    to bf16 before their product with v, the output rounded to bf16): the
+    share of outputs equal bit for bit and the largest gap over the largest
+    |output|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+
+    cfg = get_config(LLAMA3_SERVE)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(0)
+
+    def draw(heads, scale):
+        return torch.from_numpy(rng.normal(size=(1, seq, heads, hd)).astype(
+            np.float32) * scale).to("cuda", torch.bfloat16)
+
+    q, k, v = draw(h, 1.5), draw(kv, 1.5), draw(kv, 1.0)
+    pos = torch.arange(seq, device="cuda", dtype=torch.int32)[None]
+    got = A._attend(q, k, v, pos, pos, 0).double()
+    qd = q.double().reshape(1, seq, kv, h // kv, hd)
+    sc = torch.einsum("bqkgh,bskh->bkgqs", qd, k.double()) * hd ** -0.5
+    sc = sc.masked_fill(~torch.ones(seq, seq, dtype=torch.bool,
+                                    device="cuda").tril(), -1e9)
+    p = torch.softmax(sc, dim=-1).to(torch.bfloat16).double()
+    want = torch.einsum("bkgqs,bskh->bqkgh", p, v.double()).reshape(
+        1, seq, h, hd).to(torch.bfloat16).double()
+    diff = (got - want).abs()
+    return {"bitwise_share": float((diff == 0).double().mean()),
+            "max_gap_over_max": float(diff.max() / want.abs().max())}
+
+
+def lm_bf16(model, profiled, f32_tokens, requests: int, prompt_len: int,
+            new_tokens: int) -> int:
+    """The reference's bf16 parameters at full size. llama3-8b: ``model``
+    (f32, seed 0, on the card) with ``profiled``, the tokens and f32
+    last-token logits of its profiled prefill, moves to bf16 in place
+    (``DecoderLM.to_dtype``: the ``init_params(dtype=bfloat16)`` model of
+    the seed), gates its bf16 logits of those tokens against them, then
+    serves the serve prompts through ``Engine`` with ``kv_bits`` 0
+    and 8 (greedy tokens against ``f32_tokens``, the f32 model's), and
+    profiles a bf16 prefill and decode step. Then mamba2-370m the same way
+    at full size on an 8 × 2,048 prefill, kernel 6 launched once per layer
+    (the SSD inputs are cast to f32). Returns kernel 6's launches of that
+    bf16 prefill."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    # launch.serve.serve's prompts at seed 0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (requests, prompt_len), dtype=np.int32)
+    tokens, logits_f = profiled
+    out = {"phase": "lm_bf16", "arch": cfg.name, "requests": requests,
+           "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "weights_gb_f32": _param_gb(model)}
+    t0 = time.perf_counter()
+    model.to_dtype(torch.bfloat16)
+    torch.cuda.synchronize()
+    out["to_dtype_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["weights_gb_bf16"] = _param_gb(model)
+    out["f32_params"] = sorted(model.f32_param_names())
+    t0 = time.perf_counter()
+    logits_b = model.prefill(tokens, buf_len=prompt_len + 1)[0]
+    torch.cuda.synchronize()
+    out["bf16_first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out.update(_bf16_gate(cfg.name, logits_b, logits_f))
+    del logits_b, logits_f, profiled
+    attn = out["attention"] = bf16_attention(prompt_len)
+    if not (attn["bitwise_share"] >= BF16_ATTN_EQUAL
+            and attn["max_gap_over_max"] <= BF16_STEP):
+        emit({"phase": "lm_bf16", "failed": "attention", **attn})
+        raise AssertionError(f"lm_bf16: bf16 attention off the f64 model: "
+                             f"{attn}")
+    for bits in (0, 8):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, model, ServeConfig(max_new_tokens=new_tokens,
+                                             kv_bits=bits))
+        got = eng.generate(prompts)
+        timing = eng.last_timing
+        out[f"kv_bits_{bits}"] = {
+            "prefill_ms": timing["prefill_s"] * 1e3,
+            "decode_ms_per_step": timing["decode_s"] * 1e3
+            / max(timing["decode_steps"], 1),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cache_bytes_fp": eng.last_cache_bytes["fp"],
+            "cache_bytes_packed": eng.last_cache_bytes["packed"],
+            "tokens_shape": list(got.shape),
+            "token_agreement_vs_f32": float(np.mean(got == f32_tokens)),
+            "first_divergence": _first_divergence(got, f32_tokens)}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if got.shape != (requests, new_tokens) or not (
+                (got >= 0) & (got < cfg.vocab_size)).all():
+            raise AssertionError("lm_bf16: malformed generated tokens")
+    emit(out)
+
+    lm_profile(model, requests, prompt_len)
+
+    mcfg = get_config(LM_ARCH)
+    res = {"phase": "lm_bf16", "arch": mcfg.name, "layers": mcfg.num_layers,
+           "requests": requests, "prompt_len": prompt_len}
+    mamba = T.init_params(mcfg, seed=0, device="cuda")
+    res["weights_gb_f32"] = _param_gb(mamba)
+    mtok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, mcfg.vocab_size, (requests, prompt_len))).cuda()
+    logits_f = mamba.prefill(mtok)[0]
+    mamba.to_dtype(torch.bfloat16)
+    res["weights_gb_bf16"] = _param_gb(mamba)
+    res["f32_params"] = len(mamba.f32_param_names())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits_b = mamba.prefill(mtok)[0]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["ssd_intra"]
+    res["bf16_first_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    res["ssd_intra_launches"] = launches
+    res.update(_bf16_gate(mcfg.name, logits_b, logits_f))
+    emit(res)
+    del mamba, logits_b, logits_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != mcfg.num_layers:
+        raise AssertionError(f"lm_bf16: ssd_intra launched {launches} times "
+                             "in the bf16 prefill, expected one per layer")
+    emit({"phase": "lm_bf16_done", "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ------------------------------------------------------------- training
@@ -3001,7 +3268,8 @@ def sync_audit(path, fn, kernels, flagged, expect=None):
     """One path's syncs: every site inside SYNC_SCOPE must be on a line
     ``device-sync`` flags or in ``SYNC_UNSEEN``; the path must launch each
     of ``kernels``; ``expect`` ("path:line" → count) are sites the audit
-    must see, so that it is known to reach the port's frames."""
+    must see, so that it is known to reach the port's frames. Returns
+    the path's sites and its launch counts."""
     from repro_torch.kernels import ops
 
     stale = {site: entry["line"] for site, entry in SYNC_UNSEEN.items()
@@ -3013,7 +3281,8 @@ def sync_audit(path, fn, kernels, flagged, expect=None):
     t0 = time.perf_counter()
     sites, _ = sync_sites(fn)
     seconds = time.perf_counter() - t0
-    launches = {name: ops.launch_counts()[name] for name in kernels}
+    counts = ops.launch_counts()
+    launches = {name: counts[name] for name in kernels}
     in_scope = {s: n for s, n in sites.items() if in_sync_scope(s)}
     unflagged = [s for s in in_scope if s not in flagged
                  and s not in SYNC_UNSEEN]
@@ -3037,6 +3306,7 @@ def sync_audit(path, fn, kernels, flagged, expect=None):
     if idle:
         raise AssertionError(f"sync_audit {path}: kernels {idle} never "
                              "launched")
+    return sites, counts
 
 
 def _port_text(site) -> str:
@@ -3095,6 +3365,61 @@ def sync_audit_search(index, queries, preds, flagged):
     sync_audit("path_a_search",
                lambda: search_torch(index, queries, preds, torch.float32),
                ["hamming_stacked", "adc_direct"], flagged)
+
+
+WARMUP_STACK_UPLOADS = 11     # one per StackedIndex field
+WARM_BATCH_SYNCS = 6          # path_a_search's, on a stacked index
+
+
+def warmup_phase(index, queries, preds, flagged):
+    """``VectorSearchService.warmup(64)`` on Path A's index with its f32
+    stack dropped (a freshly bound index), under the sync audit: the
+    stack's uploads (``core/dataplane.py``'s ``_tensor``, one per field)
+    happen inside ``warmup``, and the next batch, through the service,
+    takes only a stacked batch's syncs. That batch's ids and stats must
+    equal those of a batch on the index without warmup. Returns the launch
+    counts of both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServiceConfig, VectorSearchService
+
+    want = search_torch(index, queries, preds, torch.float32)
+    key = (torch.float32, str(torch.device("cuda",
+                                           torch.cuda.current_device())))
+    if index._stacked_cache.pop(key, None) is None:
+        raise AssertionError("warmup: Path A's f32 stack was not cached")
+    svc = VectorSearchService(index, ServiceConfig(backend="torch"))
+    upload = _port_line("core/dataplane.py",
+                        "torch.from_numpy(arr).to(device)")
+    kernels = ["hamming_stacked", "adc_direct"]
+    t0 = time.perf_counter()
+    sites_w, counts_w = sync_audit(
+        "warmup", lambda: svc.warmup(queries.shape[0]), kernels, flagged,
+        expect={upload: WARMUP_STACK_UPLOADS})
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sites_b, counts_b = sync_audit(
+        "warm_batch", lambda: with_dtype(torch.float32, lambda: svc.query(
+            queries, preds)), kernels, flagged)
+    batch_s = time.perf_counter() - t0
+    got = with_dtype(torch.float32, lambda: svc.query(queries, preds))
+    equal = (np.array_equal(got[0], want[0]) and got[2] == want[2]
+             and np.array_equal(got[1], want[1]))
+    emit({"phase": "warmup", "Q": int(queries.shape[0]),
+          "warmup_s": warmup_s, "warm_batch_s": batch_s,
+          "warmup_syncs": sum(sites_w.values()),
+          "warm_batch_syncs": sum(sites_b.values()),
+          "ids_dists_stats_equal_unwarmed": bool(equal),
+          "requests": svc.requests})
+    if not equal:
+        raise AssertionError("warmup: the batch after warmup differs from a "
+                             "batch without it")
+    if sum(sites_b.values()) != WARM_BATCH_SYNCS:
+        raise AssertionError(f"warmup: the batch after warmup took "
+                             f"{sum(sites_b.values())} syncs, expected "
+                             f"{WARM_BATCH_SYNCS}: {sites_b}")
+    return {name: counts_w[name] + counts_b[name] for name in counts_w}
 
 
 def main(argv=None) -> int:
@@ -3161,24 +3486,29 @@ def run_phases(args, card, t_start, dryruns) -> int:
     del lm_model
     torch.cuda.empty_cache()
     zamba_launches, zamba_shape = lm_families()
-    lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN, LM_NEW_TOKENS)
-    train_check()
-    grad_res = ssd_grad()
-    train_launches, train_rep = train_run()
-    train_llama3_width()
-    sharded_launches = {"sharded_check": sharded_check(),
-                        "sharded_train_run": sharded_train_run(train_rep)}
-    rag_counts = rag_phase()
-    wide = check_wide()
+    bf16_launches = lm_serve_llama3(LM_REQUESTS, LM_PROMPT_LEN,
+                                    LM_NEW_TOKENS)
 
     cfg_a = SquashConfig(num_partitions=10, max_bits_per_dim=8,
                          kmeans_iters=4, lloyd_iters=6)
     cfg_b = dataclasses.replace(cfg_a, max_bits_per_dim=5)
-    # Both host builds at once: Path B's in a spawned worker (terminated
-    # when the pool closes), Path A's here.
+    # Both host index builds run in spawned workers (terminated when the
+    # pool closes) beside the training, sharded and RAG phases, which keep
+    # the card busy; the serving phases above keep a quiet host for their
+    # host-bound decode times.
     t_builds = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        pending_b = pool.apply_async(build_in_worker, (args.rows_b, cfg_b))
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        pending = [pool.apply_async(build_in_worker, (rows, cfg))
+                   for rows, cfg in ((args.rows_a, cfg_a),
+                                     (args.rows_b, cfg_b))]
+        train_check()
+        grad_res = ssd_grad()
+        train_launches, train_rep = train_run()
+        train_llama3_width()
+        sharded_launches = {"sharded_check": sharded_check(),
+                            "sharded_train_run": sharded_train_run(train_rep)}
+        rag_counts = rag_phase()
+        wide = check_wide()
         t0 = time.perf_counter()
         ds = make_dataset()
         preds = synthetic.default_predicates()
@@ -3189,13 +3519,17 @@ def run_phases(args, card, t_start, dryruns) -> int:
         for path, rows in (("A", args.rows_a), ("B", args.rows_b)):
             if rows != ds.n:
                 emit({"phase": "cut", "path": path, "rows": rows, "of": ds.n})
-        index_a, build_a = build_index(ds, args.rows_a, cfg_a)
-        index_b, build_b = pending_b.get()
+        t0 = time.perf_counter()
+        (index_a, build_a), (index_b, build_b) = (p.get() for p in pending)
+        waited_s = time.perf_counter() - t0
     builds_s = time.perf_counter() - t_builds
-    emit_build("path_a", index_a, args.rows_a, cfg_a, build_a)
+    built_in = ("a worker process, beside the other path's build and the "
+                "training, sharded and RAG phases")
+    emit_build("path_a", index_a, args.rows_a, cfg_a, build_a,
+               built_in=built_in)
     emit_build("path_b", index_b, args.rows_b, cfg_b, build_b,
-               built_in="a worker process, beside Path A's build",
-               both_builds_wall_s=builds_s)
+               built_in=built_in, both_builds_wall_s=builds_s,
+               waited_for_builds_s=waited_s)
 
     launches_a, gt_a = run_path("path_a", ds, args.rows_a, index_a, preds,
                                 check_f32=True,
@@ -3204,6 +3538,8 @@ def run_phases(args, card, t_start, dryruns) -> int:
                              check_f32=False,
                              timed_batches=args.timed_batches)
     sync_audit_search(index_a, ds.queries.astype("float64"), preds, flagged)
+    warmup_launches = warmup_phase(index_a, ds.queries.astype("float64"),
+                                   preds, flagged)
 
     packed_a, extract_launches = extract_path(index_a)
 
@@ -3214,7 +3550,7 @@ def run_phases(args, card, t_start, dryruns) -> int:
                 "adc_batch": launches_b["adc_batch"],
                 "extract_codes": extract_launches["extract_codes"],
                 "ssd_intra": (lm_launches["ssd_intra"] + zamba_launches
-                              + train_launches
+                              + train_launches + bf16_launches
                               + sum(sharded_launches.values()))}
     missing = [name for name, n in per_path.items() if n <= 0]
     if missing:
@@ -3239,6 +3575,7 @@ def run_phases(args, card, t_start, dryruns) -> int:
         index_a, queries, preds, gt_a, args.rows_a)
     serverless_socket_phase(index_a, queries, preds, local_cold, args.rows_a)
     by_phase = {"path_a": launches_a, "path_b": launches_b,
+                "warmup": warmup_launches,
                 "serverless_local": serverless_counts,
                 "mesh": mesh_phase(index_a, index_b, queries, preds),
                 "live": live_phase(index_b, queries, preds),
@@ -3249,8 +3586,9 @@ def run_phases(args, card, t_start, dryruns) -> int:
             entry["wide_d"] = wide[entry["name"]]
         if entry["name"] == "ssd_intra":
             entry["launches_by_phase"]["train"] = train_launches
+            entry["launches_by_phase"]["lm_bf16"] = bf16_launches
             entry["launches_by_phase"].update(sharded_launches)
-            entry["launches"] += train_launches + sum(
+            entry["launches"] += train_launches + bf16_launches + sum(
                 sharded_launches.values())
             entry["training"] = {
                 key: grad_res[key] for key in (

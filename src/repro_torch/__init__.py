@@ -14,11 +14,19 @@ The port imports ``torch`` and numpy only — never ``jax`` and nothing of
   language-model serving ``Engine``.
 * ``repro_torch.analysis`` — squashlint for the port (pure ``ast``: needs
   neither torch nor numpy), ``python -m repro_torch.analysis``.
-* ``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.launch`` —
-  the LM substrate ported so far: ``mamba2-370m`` (Mamba2 mixer, decoder,
-  ``python -m repro_torch.launch.serve``).
+* ``repro_torch.configs``, ``repro_torch.models``, ``repro_torch.launch``,
+  ``repro_torch.train``, ``repro_torch.optim``, ``repro_torch.checkpoint``
+  — the LM substrate: all ten configs (GQA / sliding / M-RoPE attention,
+  MLA, MoE, Mamba2, the local:global and hybrid schedules, the audio
+  heads), serving (``python -m repro_torch.launch.serve``), training
+  (``python -m repro_torch.launch.train``), the sharded path on a
+  ``DeviceMesh`` and its dry run. Models take the reference's parameter
+  dtypes: f32 by default, or bf16 (its production dtype) through
+  ``models.transformer.init_params(..., dtype=torch.bfloat16)``, with the
+  MoE routers and the Mamba2 mixers' ``A_log``, ``D`` and ``dt_bias`` kept
+  f32 as the reference keeps them.
 
-Entry points run on the card: ``SquashIndex.search(backend="torch")`` and
-``Engine`` take ``device=None`` meaning ``"cuda"`` and raise when CUDA is
-absent, unless the caller passes ``device="cpu"``.
+Entry points run on the card: ``SquashIndex.search(backend="torch")``,
+``Engine`` and the model builders take ``device=None`` meaning ``"cuda"``
+and raise when CUDA is absent, unless the caller passes ``device="cpu"``.
 """

@@ -20,9 +20,13 @@ masks and keep/take counts without a broadcast — mirroring how QAs ship
 bitmaps to QPs in request payloads.
 
 The port of the JAX package's ``repro.core.distributed``: its ``shard_map``
-over a (data, model) ``Mesh`` becomes a
-``torch.distributed.device_mesh.DeviceMesh`` with dimensions named
-``("data", "model")`` (NCCL on the card, gloo on the CPU). The merge keeps
+over a ``Mesh`` becomes a ``torch.distributed.device_mesh.DeviceMesh``
+with named dimensions (NCCL on the card, gloo on the CPU). As in the
+reference, ``data_axes`` (default ``("data",)``) name the dimensions the
+queries split over, in row-major order (the multi-pod mesh's ``("pod",
+"data")``: a rank's block is ``pod · |data| + data``), and ``model_axis``
+(default ``"model"``) the one the partitions split over; a dimension named
+by neither repeats the work on each of its ranks. The merge keeps
 the reference's tie order: ``lax.top_k`` over the gathered distances picks
 the lower index on ties, i.e. the lower model rank, and so does a stable
 ascending sort of the gathered lists concatenated in rank order. Padded
@@ -44,27 +48,38 @@ from repro_torch.core.pipeline import SquashIndex, resolve_device
 __all__ = ["StackedIndex", "stack_index", "distributed_search",
            "make_search_fn"]
 
-MESH_DIMS = ("data", "model")
-
-
 class _Axes:
-    """This rank's place on the (data, model) mesh and its two gathers.
+    """This rank's place on the mesh: its block of the queries over
+    ``data_axes`` and of the partitions over ``model_axis``, and the
+    gathers along them.
 
-    ``mesh=None`` is the 1 × 1 mesh of one process: both gathers are the
+    ``mesh=None`` is the 1 × 1 mesh of one process: every gather is the
     identity and no process group is needed.
     """
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, data_axes=("data",), model_axis="model"):
         self.mesh = mesh
+        self.data_axes = tuple(data_axes)
         if mesh is None:
-            self.size = {"data": 1, "model": 1}
-            self.rank = {"data": 0, "model": 0}
-            return
-        if tuple(mesh.mesh_dim_names or ()) != MESH_DIMS:
-            raise ValueError(f"the mesh's dimensions must be named "
-                             f"{MESH_DIMS}, not {mesh.mesh_dim_names}")
-        self.size = {a: int(mesh.shape[i]) for i, a in enumerate(MESH_DIMS)}
-        self.rank = {a: int(mesh.get_local_rank(a)) for a in MESH_DIMS}
+            self.size = {a: 1 for a in (*self.data_axes, model_axis)}
+            self.rank = {a: 0 for a in self.size}
+        else:
+            names = tuple(mesh.mesh_dim_names or ())
+            wanted = (*self.data_axes, model_axis)
+            if len(set(wanted)) != len(wanted) or \
+                    not set(wanted) <= set(names):
+                raise ValueError(f"data_axes {self.data_axes} and model_axis "
+                                 f"{model_axis!r} must be distinct dimensions "
+                                 f"of the mesh, whose are {names}")
+            self.size = {a: int(mesh.shape[i]) for i, a in enumerate(names)}
+            self.rank = {a: int(mesh.get_local_rank(a)) for a in names}
+        self.data_size = 1
+        self.data_rank = 0               # row-major over data_axes
+        for a in self.data_axes:
+            self.data_size *= self.size[a]
+            self.data_rank = self.data_rank * self.size[a] + self.rank[a]
+        self.model_size = self.size[model_axis]
+        self.model_rank = self.rank[model_axis]
 
     def gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """``t`` of every rank along ``axis``, concatenated on ``dim`` in
@@ -75,6 +90,13 @@ class _Axes:
         dist.all_gather(parts, t.contiguous(),
                         group=self.mesh.get_group(axis))
         return torch.cat(parts, dim=dim)
+
+    def gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of every query block, concatenated on dim 0 in block order:
+        one gather per data axis, the innermost first."""
+        for axis in reversed(self.data_axes):
+            t = self.gather(t, axis, dim=0)
+        return t
 
 
 def _mesh_device(mesh) -> torch.device:
@@ -92,32 +114,35 @@ def make_search_fn(
     keep_s: int,
     take_s: int,
     refine: bool = True,
+    data_axes=("data",),
+    model_axis: str = "model",
 ) -> Callable:
     """The distributed search function for ``mesh`` (None: one process).
 
     ``search(queries, cand_mask, keep, take, stacked)`` takes the global
     arrays, identical on every rank:
-      queries     (Q, d)        — Q a multiple of the ``data`` size
+      queries     (Q, d)        — Q a multiple of the product of the
+                                  ``data_axes`` sizes
       cand_mask   (Q, P, n_max) — filter ∧ residency ∧ visit (from Alg. 1)
       keep, take  (Q, P) int32  — per-pair dynamic stage counts
       stacked     StackedIndex  — all P partitions on this rank's device, P
-                                  a multiple of the ``model`` size
+                                  a multiple of the ``model_axis`` size
     and returns ids (Q, k) int32 and dists (Q, k) float, on every rank. A
     rank runs the plane on its rows of queries and a view of its
     partitions; ``keep_s``/``take_s`` are the static selection sizes (see
     ``dataplane.static_counts``).
     """
-    axes = _Axes(mesh)
+    axes = _Axes(mesh, data_axes, model_axis)
 
     def search(queries, cand_mask, keep, take, stacked: StackedIndex):
         qn, p = cand_mask.shape[:2]
-        nd, nm = axes.size["data"], axes.size["model"]
+        nd, nm = axes.data_size, axes.model_size
         if qn % nd or p % nm:
             raise ValueError(f"Q={qn} and P={p} must be multiples of the "
-                             f"mesh's (data, model) = ({nd}, {nm})")
+                             f"mesh's (data, model) sizes ({nd}, {nm})")
         qs, ps = qn // nd, p // nm
-        rows = slice(axes.rank["data"] * qs, (axes.rank["data"] + 1) * qs)
-        lo = axes.rank["model"] * ps
+        rows = slice(axes.data_rank * qs, (axes.data_rank + 1) * qs)
+        lo = axes.model_rank * ps
         local = StackedIndex(**{                # views, not copies
             name: getattr(stacked, name)[lo:lo + ps]
             for name in StackedIndex.__dataclass_fields__})
@@ -133,12 +158,12 @@ def make_search_fn(
         )                                                       # (Qs, k)
         # Single-pass MPI-style reduce over the model axis (§2.4.5): the
         # stable sort keeps rank order on ties, as lax.top_k does.
-        all_ids = axes.gather(ids, "model", dim=1)              # (Qs, nm·k)
-        all_d = axes.gather(dists, "model", dim=1)
+        all_ids = axes.gather(ids, model_axis, dim=1)           # (Qs, nm·k)
+        all_d = axes.gather(dists, model_axis, dim=1)
         top_d, sel = torch.sort(all_d, dim=1, stable=True)
         ids = torch.gather(all_ids, 1, sel[:, :k])
-        return (axes.gather(ids, "data", dim=0),
-                axes.gather(top_d[:, :k].contiguous(), "data", dim=0))
+        return (axes.gather_data(ids),
+                axes.gather_data(top_d[:, :k].contiguous()))
 
     return search
 
@@ -149,6 +174,8 @@ def distributed_search(
     predicates,
     k: int,
     mesh=None,
+    data_axes=("data",),
+    model_axis: str = "model",
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-orchestrated distributed hybrid search (QA plane + QP plane).
@@ -157,18 +184,20 @@ def distributed_search(
     Algorithm 1) on its host for the whole batch, then its share of Stages
     3–5 and the collectives. Returns the global ids (Q, k) int64 and dists
     (Q, k) float64 on every rank, equal to ``index.search(backend="torch")``
-    (ids bitwise, order included). ``mesh`` is a ``DeviceMesh`` with
-    dimensions ``("data", "model")``; None runs the 1 × 1 mesh on ``device``
-    (the card unless ``device="cpu"``). The float width is
-    ``torch.get_default_dtype()``, as the torch backend's.
+    (ids bitwise, order included). ``mesh`` is a ``DeviceMesh`` whose
+    dimensions include ``data_axes`` (the queries split over their product)
+    and ``model_axis`` (the partitions split over it), as the reference
+    names them; None runs the 1 × 1 mesh on ``device`` (the card unless
+    ``device="cpu"``). The float width is ``torch.get_default_dtype()``, as
+    the torch backend's.
     """
+    axes = _Axes(mesh, data_axes, model_axis)
     queries, cands, _ = index.select(queries, predicates, k)
     qn = queries.shape[0]
     cfg = index.config
-    axes = _Axes(mesh)
     dev = resolve_device(device) if mesh is None else _mesh_device(mesh)
     dtype = torch.get_default_dtype()
-    nm, nd = axes.size["model"], axes.size["data"]
+    nm, nd = axes.model_size, axes.data_size
     if nm == 1:
         stacked = index.stacked(dtype, dev)      # the torch backend's stack
     else:
@@ -194,7 +223,8 @@ def distributed_search(
         take = np.pad(take, ((0, pad_q - qn), (0, 0)))
 
     search = make_search_fn(mesh, k=k, keep_s=keep_s, take_s=take_s,
-                            refine=cfg.enable_refine)
+                            refine=cfg.enable_refine, data_axes=data_axes,
+                            model_axis=model_axis)
     ids, dists = search(torch.from_numpy(queries), torch.from_numpy(cand_mask),
                         torch.from_numpy(keep), torch.from_numpy(take),
                         stacked)

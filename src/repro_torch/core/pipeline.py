@@ -252,16 +252,21 @@ class SquashIndex:
         queries: np.ndarray,
         predicates: Sequence[attr_mod.Predicate],
         k: int = 10,
+        collect_stats: bool = False,
         backend: Optional[str] = None,
         device=None,
     ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
         """Batched hybrid top-k. Returns (ids (Q,k), dists (Q,k), stats).
 
-        ``backend`` overrides ``config.backend`` for this call: ``"numpy"``
-        runs the per-query reference loop, ``"torch"`` the batched plane on
-        ``device`` (default ``"cuda"``; raises without CUDA unless
-        ``device="cpu"``) — identical ids, same stats counters.
+        The arguments keep the reference's order (``device`` after them);
+        ``collect_stats`` is accepted and unused, as in the reference: the
+        stats are always counted. ``backend`` overrides ``config.backend``
+        for this call: ``"numpy"`` runs the per-query reference loop,
+        ``"torch"`` the batched plane on ``device`` (default ``"cuda"``;
+        raises without CUDA unless ``device="cpu"``) — identical ids, same
+        stats counters.
         """
+        del collect_stats
         backend = backend or self.config.backend
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected "

@@ -25,14 +25,23 @@ the unsharded model (the global work), and ``flops_split`` = flops /
 (1.0). A process has one default group, so the dry run runs in its own
 process (``main`` or a ``python -c``), as the reference's does.
 
+The parameters take the reference's dtype, ``param_dtype`` (bf16 by
+default, as the reference's ``lower_pair``), through
+``DecoderLM.to_dtype``: the MoE routers and the Mamba2 mixers' ``A_log``,
+``D`` and ``dt_bias`` stay f32, as the reference's ``init_params`` keeps
+them. A train step's AdamW moments are bf16 where ``d_model >= 7168``
+(arctic-480b) and f32 otherwise, as the reference's; decode caches are in
+``param_dtype``, the Mamba2 states in f32.
+
 Per-rank memory is the bytes of rank 0's shards of the parameters, the
 optimizer state and the inputs (activations are not counted: nothing is
 allocated). The roofline terms are H100 spec arithmetic from
 ``launch.mesh.HW``, not measurements: ``t_compute`` rank 0's FLOPs over
-a card's float32 peak (the port's models compute in float32: torch's
-products do not promote mixed widths, so the MoE router and the SSD scan
-need float32 weights where the reference takes bf16), ``t_memory`` rank
-0's state read once from HBM, ``t_collective`` rank 0's collective bytes
+a card's peak for ``param_dtype`` (the bf16 tensor-core peak for bf16
+parameters, the f32 peak for f32; with bf16 parameters every product is
+counted at the bf16 peak, GQA attention's f32 score and value products
+too, so ``t_compute`` is a lower bound), ``t_memory`` rank 0's state read once
+from HBM, ``t_collective`` rank 0's collective bytes
 over one NVLink direction (an optimistic bound: a 256-card mesh spans hosts,
 whose links are slower). The port has no scan, so ``--unroll`` is accepted
 and changes nothing.
@@ -64,7 +73,8 @@ __all__ = ["input_specs", "arch_for_shape", "dryrun_pair",
 # natively.
 LONG_WINDOW = 8192
 _NATIVE_LONG = {"mamba2-370m", "zamba2-7b", "gemma3-4b"}
-PARAM_DTYPE = torch.float32
+PARAM_DTYPE = torch.bfloat16      # the reference's default param_dtype
+BF16_MOMENTS_D_MODEL = 7168       # bf16 AdamW moments from this width up
 
 
 def arch_for_shape(name: str, shape: InputShape) -> ArchConfig:
@@ -79,7 +89,14 @@ def _meta_model(cfg: ArchConfig, dtype=PARAM_DTYPE):
     from repro_torch.models.transformer import DecoderLM
 
     with torch.device("meta"):
-        return DecoderLM(cfg).to(dtype)
+        return DecoderLM(cfg).to_dtype(dtype)
+
+
+def _opt_state_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The AdamW moments' dtype: bf16 for the widest model (the reference's
+    480B giant), f32 otherwise."""
+    return (torch.bfloat16 if cfg.d_model >= BF16_MOMENTS_D_MODEL
+            else torch.float32)
 
 
 def _tokens(cfg: ArchConfig, batch: int, seq: int) -> torch.Tensor:
@@ -107,14 +124,9 @@ def input_specs(cfg: ArchConfig, shape: InputShape,
             out["embeds"] = embeds
         return out
     # decode: ONE new token against a seq_len cache
-    caches = _meta_model(cfg, param_dtype).init_decode_caches(b, s)
-    caches = _map(lambda t: t.to(param_dtype), caches)
+    caches = _meta_model(cfg, param_dtype).init_decode_caches(
+        b, s, dtype=param_dtype)
     return {"tokens": _tokens(cfg, b, 1), "caches": caches, "pos": s - 1}
-
-
-def _map(fn, tree):
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
 
 
 def _leaves(tree) -> Iterable[torch.Tensor]:
@@ -232,7 +244,7 @@ def init_fake_group(world: int) -> None:
 
 
 def _step(cfg: ArchConfig, shape: InputShape, mesh, cache_profile: str,
-          remat: bool, accum_steps: int):
+          remat: bool, accum_steps: int, param_dtype=PARAM_DTYPE):
     """(a function running the step, {part: state whose shards count}),
     sharded on ``mesh`` (None: the whole step on one device)."""
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -241,13 +253,13 @@ def _step(cfg: ArchConfig, shape: InputShape, mesh, cache_profile: str,
     def batch_of(tree):
         return tree if mesh is None else SH.shard_batch(tree, mesh)
 
-    model = _meta_model(cfg)
+    model = _meta_model(cfg, param_dtype)
     if mesh is not None:
         SH.shard_model(model, mesh)
-    specs = input_specs(cfg, shape)
+    specs = input_specs(cfg, shape, param_dtype)
     state = {"params": list(model.parameters())}
     if shape.mode == "train":
-        opt_cfg = AdamWConfig()
+        opt_cfg = AdamWConfig(state_dtype=_opt_state_dtype(cfg))
         opt = adamw_init(dict(model.named_parameters()), opt_cfg)
         if mesh is not None:
             opt = SH.shard_opt_state(opt, model, mesh)
@@ -278,10 +290,12 @@ def dryrun_pair(name: str, shape_name: str, *, multi_pod: bool = False,
                 mesh=None, cfg: Optional[ArchConfig] = None,
                 verbose: bool = True, remat: bool = True,
                 accum_steps: int = 1, unroll: bool = False,
-                cache_profile: str = "seq") -> Dict[str, Any]:
+                cache_profile: str = "seq",
+                param_dtype=PARAM_DTYPE) -> Dict[str, Any]:
     """One (arch × shape) step on the production mesh (or ``mesh``; ``cfg``
-    overrides the arch's config, e.g. a reduced one). ``unroll`` is
-    accepted for the reference's interface: the port has no scan."""
+    overrides the arch's config, e.g. a reduced one), with the parameters
+    in ``param_dtype``. ``unroll`` is accepted for the reference's
+    interface: the port has no scan."""
     del unroll
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -292,9 +306,11 @@ def dryrun_pair(name: str, shape_name: str, *, multi_pod: bool = False,
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     flops = FlopCounterMode(display=False)
     with flops:                     # the global work: the step unsharded
-        _step(cfg, shape, None, cache_profile, remat, accum_steps)[0]()
+        _step(cfg, shape, None, cache_profile, remat, accum_steps,
+              param_dtype)[0]()
     t0 = time.perf_counter()
-    run, state = _step(cfg, shape, mesh, cache_profile, remat, accum_steps)
+    run, state = _step(cfg, shape, mesh, cache_profile, remat, accum_steps,
+                       param_dtype)
     t1 = time.perf_counter()
     comms, rank_flops = CollectiveRecorder(), RankFlopCounter()
     with comms, rank_flops:
@@ -313,7 +329,7 @@ def dryrun_pair(name: str, shape_name: str, *, multi_pod: bool = False,
         "shape": shape_name,
         "mesh": axes,
         "chips": nchips,
-        "param_dtype": str(PARAM_DTYPE).split(".")[-1],
+        "param_dtype": str(param_dtype).split(".")[-1],
         "build_s": t1 - t0,
         "trace_s": t2 - t1,
         "flops": total_flops,
@@ -323,7 +339,9 @@ def dryrun_pair(name: str, shape_name: str, *, multi_pod: bool = False,
         "collectives": coll,
         "memory": mem,
         # roofline terms (seconds), H100 spec arithmetic — rank 0's work
-        "t_compute": rank_flops.flops / HW.PEAK_F32_FLOPS,
+        "t_compute": rank_flops.flops / (
+            HW.PEAK_BF16_FLOPS if param_dtype == torch.bfloat16
+            else HW.PEAK_F32_FLOPS),
         "t_memory": mem["argument_bytes"] / HW.HBM_BW,
         "t_collective": coll["total_bytes"] / HW.NVLINK_BW,
     }
@@ -347,7 +365,7 @@ def dryrun_pair(name: str, shape_name: str, *, multi_pod: bool = False,
 
 def run_all(archs=None, shapes=None, *, multi_pod: bool = False,
             json_path: Optional[str] = None, unroll: bool = False,
-            cache_profile: str = "seq") -> list:
+            cache_profile: str = "seq", param_dtype=PARAM_DTYPE) -> list:
     archs = archs or list_configs()
     shapes = shapes or list(INPUT_SHAPES)
     init_fake_group(512 if multi_pod else 256)
@@ -357,7 +375,8 @@ def run_all(archs=None, shapes=None, *, multi_pod: bool = False,
         for s in shapes:
             try:
                 results.append(dryrun_pair(a, s, mesh=mesh, unroll=unroll,
-                                           cache_profile=cache_profile))
+                                           cache_profile=cache_profile,
+                                           param_dtype=param_dtype))
             except Exception as e:  # a failure here is a fault of the port
                 print(f"[dryrun] FAILED {a} × {s}: {type(e).__name__}: {e}")
                 results.append({"arch": a, "shape": s, "error": str(e)})

@@ -15,9 +15,16 @@ queries) so the (S × S) score matrix never materializes — peak scores are
 *absorbed* form (q projected into the latent space), so per-step work is
 O(S · kv_lora) and per-head keys never materialize.
 
-Plain matrix products and ``torch.softmax`` in f32, with the reference's
-``-1e9`` fill for masked scores (not ``-inf``: a row with no valid key,
-a pad query, stays a uniform average as in the reference).
+GQA attention runs at the reference's precision whatever the weights'
+dtype: q·k scores, the softmax and the p·v sums in f32 (f64 stays f64),
+the probabilities rounded to v's dtype before their product with v, and
+the output cast back to v's dtype at the end — what the reference's
+``preferred_element_type=jnp.float32`` products on bf16 operands compute.
+The operands are widened exactly before each product (a bf16 value is an
+f32 value), so an f32 model's products are what they were. Masked scores
+take the reference's ``-1e9`` fill (not ``-inf``: a row with no valid key,
+a pad query, stays a uniform average as in the reference). MLA's absorbed
+decode is all f32, as the reference's.
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ def _attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vd = v.shape[-1]
     g = h // kv
     scale = hd ** -0.5
+    acc = _accum_dtype(q, k, v)
     qc = min(q_chunk or Q_CHUNK, sq)
     pad = (-sq) % qc
     if pad:
@@ -135,19 +143,30 @@ def _attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qs = q.reshape(b, nq, qc, kv, g, hd)
     qps = q_pos.reshape(b, nq, qc)
     kp = k_pos[:, None, :]
+    kf, vf = k.to(acc), v.to(acc)
     outs = []
     for i in range(nq):
         qp = qps[:, i, :, None]                               # (B, qc, 1)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qs[:, i], k) * scale
+        s = torch.einsum("bqkgh,bskh->bkgqs", qs[:, i].to(acc), kf) * scale
         mask = (kp <= qp) & (kp >= 0)
         if window:
             mask &= kp > (qp - window)
         mask &= qp >= 0
         s = torch.where(mask[:, None, None, :, :], s, _NEG)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v))
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh",
+                                 p.to(v.dtype).to(acc), vf))
     out = torch.stack(outs, dim=1).reshape(b, nq * qc, h, vd)
     return out[:, :sq].to(v.dtype)
+
+
+def _accum_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """The dtype attention's products and softmax run in: the operands'
+    widest, and at least f32."""
+    acc = torch.float32
+    for t in ts:
+        acc = torch.promote_types(acc, t.dtype)
+    return acc
 
 
 def _decode_positions(b: int, pos: int, device) -> torch.Tensor:
@@ -185,10 +204,11 @@ def _update_slot(buf: torch.Tensor, slot: int, new: torch.Tensor) -> None:
 # ----------------------------------------------------------------------- GQA
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, buf_len: int,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, dtype=None) -> Dict[str, torch.Tensor]:
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": torch.zeros((batch, buf_len, kv, hd), device=device),
-            "v": torch.zeros((batch, buf_len, kv, hd), device=device)}
+    shape = (batch, buf_len, kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 class GQA(nn.Module):
@@ -290,12 +310,12 @@ class GQA(nn.Module):
 # ----------------------------------------------------------------------- MLA
 
 def init_mla_cache(cfg: ArchConfig, batch: int, buf_len: int,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, dtype=None) -> Dict[str, torch.Tensor]:
     return {
         "latent": torch.zeros((batch, buf_len, cfg.kv_lora_rank),
-                              device=device),
+                              dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, buf_len, cfg.qk_rope_dim),
-                              device=device),
+                              dtype=dtype, device=device),
     }
 
 

@@ -3,7 +3,9 @@
 The port of ``repro.models.moe``. Dispatch is **gather-based**, as in the
 reference (no GShard one-hot dispatch tensor):
 
-  1. router softmax in f32, then top-k → flat (T·K,) expert assignments,
+  1. router logits and softmax in f32 (the router's weight stays f32 in
+     a bf16 model, as in the reference), then top-k → flat (T·K,) expert
+     assignments,
   2. capacity slots via a stable-sort rank (tokens beyond ``capacity``
      drop, as in Switch/GShard capacity-factor semantics); the capacity
      ``max(int(cf · T · k / E), k)`` is recomputed per call, so a decode
@@ -69,6 +71,10 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
 class MoE(nn.Module):
     """Router + E-stacked experts (+ DeepSeek's shared experts, + Arctic's
     parallel dense FFN)."""
+
+    # kept in f32 by ``DecoderLM.to_dtype``: the reference's router is f32
+    # whatever the experts' dtype
+    F32_PARAMS = ("router",)
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()

@@ -10,10 +10,14 @@ over chunks. Per-token decode keeps the recurrent state ``(B, H, P, N)``.
 Conventions (n_groups = 1, B/C shared across heads, as in the 370m config):
   d_inner = expand · d_model,  H = d_inner / headdim,  N = ssm_state.
 The input projections are split into z | xBC | dt; a depthwise causal conv
-runs over the [x | B | C] channels; gated RMSNorm before out_proj. All math
-is f32. Parameters broadcast by trailing alignment, without leading
-``[None]`` axes: on a 1 × 1 mesh DTensor's backward of such an axis
-squeezes a size-1 dim it holds as sharded, which it refuses. The
+runs over the [x | B | C] channels; gated RMSNorm before out_proj. The
+SSD scan (kernel 6 included) and the decode recurrence run in f32 whatever
+the weights' dtype, as the reference's ``SSD_COMPUTE_DTYPE``; the
+projections, the conv and the norm take the weights' dtype, and ``A_log``,
+``D`` and ``dt_bias`` stay f32 (``F32_PARAMS``). Parameters broadcast by
+trailing alignment, without leading ``[None]`` axes: on a 1 × 1 mesh
+DTensor's backward of such an axis squeezes a size-1 dim it holds as
+sharded, which it refuses. The
 reference's sharding hints place a sharded model's streams
 (``hints.hint``): heads over ``model``, B and C replicated over it, so
 that kernel 6 runs on each rank's own heads (``kernels.ops.ssd_intra``).
@@ -113,20 +117,26 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y[:, :s], carry
 
 
-def init_mamba2_cache(cfg: ArchConfig, batch: int,
-                      device=None) -> Dict[str, torch.Tensor]:
+def init_mamba2_cache(cfg: ArchConfig, batch: int, device=None,
+                      dtype=None) -> Dict[str, torch.Tensor]:
     """Zero decode cache of one mixer: the last ``ssm_conv - 1`` pre-conv
-    inputs and the recurrent state."""
+    inputs in ``dtype`` (default: torch's) and the recurrent state, at
+    least f32 whatever ``dtype`` is, as the reference keeps it."""
     d_inner, h, n, p = _dims(cfg)
+    dtype = dtype or torch.get_default_dtype()
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner + 2 * n),
-                            device=device),
-        "state": torch.zeros((batch, h, p, n), device=device),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, h, p, n), device=device,
+                             dtype=torch.promote_types(dtype, torch.float32)),
     }
 
 
 class Mamba2Mixer(nn.Module):
     """One Mamba2 mixer; parameter names follow ``init_mamba2``'s tree."""
+
+    # kept in f32 by ``DecoderLM.to_dtype``, as ``init_mamba2`` keeps them
+    F32_PARAMS = ("A_log", "D", "dt_bias")
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()

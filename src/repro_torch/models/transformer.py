@@ -159,12 +159,12 @@ def _pin_stream(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_cache(cfg: ArchConfig, kind: str, batch: int, buf_len: int,
-                 device) -> Dict[str, torch.Tensor]:
+                 device, dtype) -> Dict[str, torch.Tensor]:
     if kind == "mamba":
-        return S.init_mamba2_cache(cfg, batch, device)
+        return S.init_mamba2_cache(cfg, batch, device, dtype)
     if kind == "mla":
-        return A.init_mla_cache(cfg, batch, buf_len, device)
-    return A.init_gqa_cache(cfg, batch, buf_len, device)
+        return A.init_mla_cache(cfg, batch, buf_len, device, dtype)
+    return A.init_gqa_cache(cfg, batch, buf_len, device, dtype)
 
 
 def _stacked(lead, one: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -340,7 +340,10 @@ class DecoderLM(nn.Module):
 
     Parameters are allocated uninitialised (on the default device, or in a
     ``with torch.device(...)`` block); :func:`init_params` draws them and
-    :func:`from_jax_params` loads a reference tree.
+    :func:`from_jax_params` loads a reference tree. :meth:`to_dtype` moves
+    the weights to another float dtype (bf16, the reference's production
+    dtype) and keeps the reference's f32 islands f32; ``Module.to(dtype)``
+    would cast those too.
     """
 
     def __init__(self, cfg: ArchConfig):
@@ -392,6 +395,31 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.scale.device
 
+    def f32_param_names(self) -> set:
+        """``state_dict`` names of the parameters the reference keeps in f32
+        whatever its ``dtype``: the MoE routers and the Mamba2 mixers'
+        ``A_log``, ``D`` and ``dt_bias`` (each module's ``F32_PARAMS``)."""
+        prefixes = [f"{name}.{attr}" if name else attr
+                    for name, mod in self.named_modules()
+                    for attr in getattr(mod, "F32_PARAMS", ())]
+        return {name for name, _ in self.named_parameters()
+                if any(name == p or name.startswith(p + ".")
+                       for p in prefixes)}
+
+    @torch.no_grad()
+    def to_dtype(self, dtype: torch.dtype) -> "DecoderLM":
+        """Cast every float parameter to ``dtype`` in place, parameter by
+        parameter (each old tensor is freed as its copy is made), except
+        :meth:`f32_param_names`, which become f32: the reference's
+        ``init_params(..., dtype=dtype)`` tree, and at f32 the model as it
+        was. Returns the model."""
+        keep = self.f32_param_names()
+        for name, p in self.named_parameters():
+            want = torch.float32 if name in keep else dtype
+            if p.dtype != want:
+                p.data = p.data.to(want)
+        return self
+
     # ------------------------------------------------------------ helpers
 
     def _embed_inputs(self, tokens: torch.Tensor,
@@ -417,40 +445,47 @@ class DecoderLM(nn.Module):
             return x @ self.embed.table.T
         return self.lm_head(x)
 
-    def _caches(self, batch: int, buf_len: int,
-                uniform_buf: int) -> Dict[str, Any]:
-        """Zero caches in the reference's layout; the uniform stack's
-        buffers hold ``uniform_buf`` slots."""
+    def _caches(self, batch: int, buf_len: int, uniform_buf: int,
+                dtype) -> Dict[str, Any]:
+        """Zero caches in the reference's layout, in ``dtype`` (the Mamba2
+        states at least f32); the uniform stack's buffers hold
+        ``uniform_buf`` slots."""
         cfg, dev = self.cfg, self.device
         sched = _schedule(cfg)
+        block = functools.partial(_block_cache, cfg, batch=batch, device=dev,
+                                  dtype=dtype)
         if sched[0] == "uniform":
-            return {"blocks": _stacked((cfg.num_layers,), _block_cache(
-                cfg, _block_kind(cfg), batch, uniform_buf, dev))}
+            return {"blocks": _stacked((cfg.num_layers,), block(
+                _block_kind(cfg), buf_len=uniform_buf))}
         if sched[0] == "local_global":
             _, r, units, tail = sched
             wbuf = min(cfg.sliding_window, buf_len)
-            local = _block_cache(cfg, "gqa", batch, wbuf, dev)
+            local = block("gqa", buf_len=wbuf)
             out = {"units": {
                 "local": _stacked((units, r), local),
-                "global": _stacked((units,), _block_cache(
-                    cfg, "gqa", batch, buf_len, dev))}}
+                "global": _stacked((units,), block("gqa", buf_len=buf_len))}}
             if tail:
                 out["tail"] = _stacked((tail,), local)
             return out
         _, e, units, tail = sched
-        mamba = _block_cache(cfg, "mamba", batch, 0, dev)
+        mamba = block("mamba", buf_len=0)
         out = {"units": {"mamba": _stacked((units, e), mamba),
-                         "attn": _stacked((units,), _block_cache(
-                             cfg, "gqa", batch, buf_len, dev))}}
+                         "attn": _stacked((units,), block(
+                             "gqa", buf_len=buf_len))}}
         if tail:
             out["tail"] = _stacked((tail,), mamba)
         return out
 
-    def init_decode_caches(self, batch: int, buf_len: int) -> Dict[str, Any]:
-        """Zero caches in :meth:`prefill`'s layout, on the model's device."""
+    def init_decode_caches(self, batch: int, buf_len: int,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Dict[str, Any]:
+        """Zero caches in :meth:`prefill`'s layout, on the model's device,
+        in ``dtype`` (default: torch's default dtype, f32 as the
+        reference's); the Mamba2 states are at least f32."""
         window = _window_for(self.cfg)
         return self._caches(batch, buf_len,
-                            min(window, buf_len) if window else buf_len)
+                            min(window, buf_len) if window else buf_len,
+                            dtype or torch.get_default_dtype())
 
     # -------------------------------------------------------- entry points
 
@@ -538,7 +573,7 @@ class DecoderLM(nn.Module):
                 if cfg.mrope else None)
         window = _window_for(cfg)
         sched = _schedule(cfg)
-        caches = self._caches(b, buf_len, buf_len)
+        caches = self._caches(b, buf_len, buf_len, x.dtype)
 
         def run(blk, x, stack, idx, *, window=0, buf=buf_len):
             x, cache, _ = blk.block_prefill(x, positions, buf, window=window,
@@ -625,19 +660,26 @@ def _resolve_device(device) -> torch.device:
     return resolve_device(device)
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> DecoderLM:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> DecoderLM:
     """A model with random weights drawn on ``device`` (default the card;
     raises without CUDA) from ``torch.Generator(device).manual_seed(seed)``:
     full-size weights are drawn on the card itself, never staged through
     host memory. The CPU's and the card's generators give different
-    numbers."""
+    numbers.
+
+    The weights are drawn in f32 and cast to ``dtype`` by
+    :meth:`DecoderLM.to_dtype`, as the reference's ``init_params(...,
+    dtype=...)`` draws in f32 and casts: the bf16 model of a seed is its f32
+    model rounded, with the routers and the mixers' ``A_log``, ``D`` and
+    ``dt_bias`` f32."""
     dev = _resolve_device(device)
     with torch.device(dev):
-        model = DecoderLM(cfg)
+        model = DecoderLM(cfg).to(torch.float32)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model.reset_parameters(gen)
-    return model
+    return model.to_dtype(dtype)
 
 
 # ======================================================================
@@ -650,6 +692,16 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield from _flatten(val, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", np.asarray(val)
+
+
+def _as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A copy of a reference leaf in its own dtype, bit for bit. numpy's
+    bfloat16 (``ml_dtypes``) has no torch counterpart numpy knows of: its
+    16-bit patterns are carried as ``uint16`` and viewed as bf16."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
 
 
 def _unstack(name: str, arr: np.ndarray, hybrid: bool):
@@ -684,8 +736,9 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
     and ``units`` on a unit axis (and, inside a unit, a layer axis for the
     local and Mamba2 stacks). Weights keep their layout (``Linear.w`` is
     ``(d_in, d_out)`` in both packages), so loading unstacks the layers and
-    renames nothing. The model lands on ``device`` (default the card;
-    raises without CUDA).
+    renames nothing. Every leaf keeps its dtype (a bf16 tree's routers stay
+    f32, as the reference made them). The model lands on ``device``
+    (default the card; raises without CUDA).
     """
     dev = _resolve_device(device)
     with torch.device("meta"):
@@ -697,9 +750,10 @@ def from_jax_params(tree: Mapping[str, Any], cfg: ArchConfig,
 
 def _state_from_jax(tree: Mapping[str, Any],
                     cfg: ArchConfig) -> Dict[str, torch.Tensor]:
-    """A reference tree as ``state_dict`` names → tensors."""
+    """A reference tree as ``state_dict`` names → tensors, each leaf in its
+    own dtype."""
     hybrid = _schedule(cfg)[0] == "hybrid"
-    return {key: torch.tensor(val)
+    return {key: _as_tensor(val)
             for name, arr in _flatten(tree)
             for key, val in _unstack(name, arr, hybrid)}
 

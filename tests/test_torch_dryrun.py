@@ -6,11 +6,15 @@ the collective byte count on a known trace, and two ``dryrun_pair`` runs of
 reduced configs (llama3's train step, mamba2's decode step) on a fake 2 × 2
 process group in a subprocess (a process has one default group): rank 0's
 parameter, optimizer and input bytes must equal the arithmetic from the
-JAX package's specs (``repro.launch.shardings``) of the same leaves, the
+JAX package's specs (``repro.launch.shardings``) of the same leaves, at
+the reference's default ``param_dtype`` (bf16, with the router f32 and
+the Mamba2 state f32; each leaf counted at its own dtype's width), the
 FLOPs must be counted and the collectives recorded. In the same process,
 the per-rank FLOP counter and the collective recorder on single products
 of known placements: a split product counts a rank's share, a replicated
 one its whole, and DTensor's own redistribution inside an op is recorded.
+A meta-only train step at full size takes the reference's dtypes: bf16
+parameters, f32 routers, and bf16 AdamW moments from ``d_model`` 7168.
 """
 
 import json
@@ -141,6 +145,17 @@ _PAIRS = textwrap.dedent("""
 """)
 
 
+def _spec_bytes(tree, specs):
+    """Rank 0's bytes of every leaf of a reference tree of
+    ``ShapeDtypeStruct`` under its sharding specs, each leaf at its own
+    dtype's width."""
+    return sum(_local_bytes(leaf.shape, spec, leaf.dtype.itemsize)
+               for leaf, spec in zip(
+                   jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(
+                       specs, is_leaf=lambda x: isinstance(
+                           x, jax.sharding.PartitionSpec))))
+
+
 def _local_bytes(shape, spec, itemsize):
     n = int(np.prod(shape))
     for ax in tuple(spec):
@@ -169,17 +184,19 @@ def _mesh(monkeypatch):
 def test_train_pair_bytes_follow_the_reference_specs(pairs, monkeypatch):
     mesh = _mesh(monkeypatch)
     jcfg = jax_get_config("llama3-8b").reduced(**LLAMA)
+    # the reference's default param_dtype (repro.launch.dryrun.lower_pair)
     params = jax.eval_shape(lambda k: jax_T.init_params(k, jcfg,
-                                                        dtype=jnp.float32),
+                                                        dtype=jnp.bfloat16),
                             jax.random.PRNGKey(0))
     specs = JSH.params_shardings(mesh, params)
-    want = sum(_local_bytes(leaf.shape, spec, 4) for leaf, spec in zip(
-        jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(
-            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))))
     res = pairs["train"]
-    assert res["memory"]["params_bytes"] == want
-    # m and v (float32) as their parameters, and the int32 step whole
-    assert res["memory"]["opt_bytes"] == 2 * want + 4
+    assert res["param_dtype"] == "bfloat16"
+    assert res["memory"]["params_bytes"] == _spec_bytes(params, specs)
+    # m and v in float32 (d_model < 7168) as their parameters, and the
+    # int32 step whole
+    moments = jax.tree_util.tree_map(
+        lambda p: jax.ShapeDtypeStruct(p.shape, jnp.float32), params)
+    assert res["memory"]["opt_bytes"] == 2 * _spec_bytes(moments, specs) + 4
     # tokens (256, 4097) int32, batch over data
     assert res["memory"]["inputs_bytes"] == 256 * 4097 * 4 // 2
     assert res["mesh"] == MESH and res["chips"] == 4
@@ -210,13 +227,43 @@ def test_decode_pair_bytes_follow_the_reference_specs(pairs, monkeypatch):
     mesh = _mesh(monkeypatch)
     jcfg = jax_get_config("mamba2-370m").reduced(**MAMBA)
     caches = jax.eval_shape(lambda: jax_T.init_decode_caches(
-        jcfg, 128, 32768, dtype=jnp.float32))
+        jcfg, 128, 32768, dtype=jnp.bfloat16))
     specs = JSH.cache_shardings(mesh, caches, profile="seq")
-    want = sum(_local_bytes(leaf.shape, spec, 4) for leaf, spec in zip(
-        jax.tree_util.tree_leaves(caches), jax.tree_util.tree_leaves(
-            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))))
+    want = _spec_bytes(caches, specs)
     res = pairs["decode"]
     # the one new token (128, 1) int32 over data, and the caches
     assert res["memory"]["inputs_bytes"] == 128 * 4 // 2 + want
+    # bf16 weights, the mixers' A_log, D and dt_bias f32
+    params = jax.eval_shape(lambda k: jax_T.init_params(k, jcfg,
+                                                        dtype=jnp.bfloat16),
+                            jax.random.PRNGKey(0))
+    assert res["memory"]["params_bytes"] == _spec_bytes(
+        params, JSH.params_shardings(mesh, params))
     assert "opt_bytes" not in res["memory"]
     assert res["flops"] > 0
+
+
+@pytest.mark.parametrize("name,moments", [("arctic-480b", torch.bfloat16),
+                                          ("llama3-8b", torch.float32)])
+def test_train_state_takes_the_reference_dtypes(name, moments):
+    """Meta only, no process group: a train step's parameters and AdamW
+    moments at full size in the reference's dtypes (``lower_pair``: bf16
+    parameters, the routers f32, and bf16 moments from d_model 7168, the
+    480B giant's width), byte for byte."""
+    cfg = get_config(name)
+    _, state = dryrun._step(cfg, INPUT_SHAPES["train_4k"], None, "seq",
+                            True, 1)
+    params = jax.eval_shape(lambda k: jax_T.init_params(k, jax_get_config(
+        name), dtype=jnp.bfloat16), jax.random.PRNGKey(0))
+    leaves = jax.tree_util.tree_leaves(params)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    assert nbytes(state["params"]) == sum(
+        leaf.size * leaf.dtype.itemsize for leaf in leaves)
+    assert {t.dtype for t in state["opt"][1:]} == {moments}
+    assert nbytes(state["opt"][1:]) == 2 * sum(
+        leaf.size for leaf in leaves) * torch.empty(
+        (), dtype=moments).element_size()
+    routers = [p for n, p in dryrun._meta_model(cfg).named_parameters()
+               if "router" in n]
+    assert bool(routers) == bool(cfg.num_experts)
+    assert all(p.dtype == torch.float32 for p in routers)
