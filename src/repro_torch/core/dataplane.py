@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.obs.spans import profiler_range as _span
 
 __all__ = [
     "StackedIndex", "stack_index", "part_stack_arrays", "stack_single_part",
@@ -371,73 +372,79 @@ def batched_stage345(
         mark("start")
 
     # --- Stage 3: low-bit Hamming prune (raw centered space) -------------
-    qc = queries[:, None, :] - stacked.part_mean[None]          # (Q, P, d)
-    zq = (qc - stacked.low_mean[None]) / stacked.low_std[None]
-    qbits = pack_query_bits(zq)                                 # (Q, P, G)
-    ham = ops.hamming_stacked(qbits, stacked.low_packed)
-    alive0 = cand_mask & stacked.valid[None]
-    ham = torch.where(alive0, ham, _BIG_HAMMING).to(torch.int64)
-    # Unique key (ham, row): the smallest keep_s keys are the reference's
-    # lax.top_k(-ham) selection, ties by ascending row, in that order.
-    key = ham * n_max + torch.arange(n_max, device=dev)
-    sel = torch.topk(key, keep_s, dim=-1, largest=False, sorted=True).indices
+    with _span("squash.stage3"):
+        qc = queries[:, None, :] - stacked.part_mean[None]      # (Q, P, d)
+        zq = (qc - stacked.low_mean[None]) / stacked.low_std[None]
+        qbits = pack_query_bits(zq)                             # (Q, P, G)
+        ham = ops.hamming_stacked(qbits, stacked.low_packed)
+        alive0 = cand_mask & stacked.valid[None]
+        ham = torch.where(alive0, ham, _BIG_HAMMING).to(torch.int64)
+        # Unique key (ham, row): the smallest keep_s keys are the
+        # reference's lax.top_k(-ham) selection, ties by ascending row, in
+        # that order.
+        key = ham * n_max + torch.arange(n_max, device=dev)
+        sel = torch.topk(key, keep_s, dim=-1, largest=False,
+                         sorted=True).indices
     if mark is not None:
         mark("hamming")
 
     # --- Stage 4: ADC lookup-table lower bounds on survivors -------------
     # Slots s ≥ keep[q, p] are dead: their bound is +inf.
-    qt = torch.einsum("qpd,pde->qpe", qc, stacked.klt)          # (Q, P, d)
-    d = queries.shape[-1]
-    m1 = stacked.boundaries.shape[1]
-    if m1 <= ADC_TABLE_MAX_M1:
-        # Dense per-pair tables (query dtype, cast f32) → table kernel, which
-        # reads the live survivors' codes through sel; dead slots come back
-        # +inf.
-        tables = adc_table_batch(qt, stacked.boundaries[None],
-                                 stacked.cells[None])
-        lb = ops.adc_table(
-            tables.reshape(qn, p, m1, d).to(torch.float32).contiguous(),
-            stacked.codes, sel, keep)
-    else:
-        # Tall tables (hot dims of up to 2^max_bits cells): direct gathers of
-        # the live survivors' codes, read through sel; dead slots come back
-        # +inf from the kernel.
-        qt = qt.contiguous()
-        qcell = query_cells(qt, stacked.boundaries)
-        lb = torch.sqrt(ops.adc_direct(qt, qcell, stacked.boundaries,
-                                       stacked.codes, sel, keep))
-    lb_sorted, sel2 = torch.sort(lb, dim=-1, stable=True)
-    lb_sorted, sel2 = lb_sorted[..., :take_s], sel2[..., :take_s]
-    slot2 = torch.arange(take_s, device=dev)
-    alive2 = slot2[None, None, :] < take[:, :, None]
-    rows = torch.gather(sel, -1, sel2)                          # (Q, P, take_s)
+    with _span("squash.stage4"):
+        qt = torch.einsum("qpd,pde->qpe", qc, stacked.klt)      # (Q, P, d)
+        d = queries.shape[-1]
+        m1 = stacked.boundaries.shape[1]
+        if m1 <= ADC_TABLE_MAX_M1:
+            # Dense per-pair tables (query dtype, cast f32) → table kernel,
+            # which reads the live survivors' codes through sel; dead slots
+            # come back +inf.
+            tables = adc_table_batch(qt, stacked.boundaries[None],
+                                     stacked.cells[None])
+            lb = ops.adc_table(
+                tables.reshape(qn, p, m1, d).to(torch.float32).contiguous(),
+                stacked.codes, sel, keep)
+        else:
+            # Tall tables (hot dims of up to 2^max_bits cells): direct
+            # gathers of the live survivors' codes, read through sel; dead
+            # slots come back +inf from the kernel.
+            qt = qt.contiguous()
+            qcell = query_cells(qt, stacked.boundaries)
+            lb = torch.sqrt(ops.adc_direct(qt, qcell, stacked.boundaries,
+                                           stacked.codes, sel, keep))
+        lb_sorted, sel2 = torch.sort(lb, dim=-1, stable=True)
+        lb_sorted, sel2 = lb_sorted[..., :take_s], sel2[..., :take_s]
+        slot2 = torch.arange(take_s, device=dev)
+        alive2 = slot2[None, None, :] < take[:, :, None]
+        rows = torch.gather(sel, -1, sel2)                  # (Q, P, take_s)
     if mark is not None:
         mark("adc")
 
     kk = min(k, take_s)
-    if refine:
-        # --- Stage 5: full-precision refinement ('EFS' rows) -------------
-        full = stacked.vectors[p_idx, rows]                     # (Q,P,take_s,d)
-        diff = full - queries[:, None, None, :]
-        exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
-        exact = torch.where(alive2, exact, inf)
-        part_d, sel3 = torch.sort(exact, dim=-1, stable=True)
-        part_d = part_d[..., :kk]
-        final_rows = torch.gather(rows, -1, sel3[..., :kk])
-    else:
-        part_d = torch.where(alive2, lb_sorted, inf)[..., :kk]
-        final_rows = rows[..., :kk]
-    part_ids = stacked.vector_ids[p_idx, final_rows]
-    part_ids = torch.where(torch.isfinite(part_d), part_ids, -1)
-    if kk < k:
-        part_ids = torch.nn.functional.pad(part_ids, (0, k - kk), value=-1)
-        part_d = torch.nn.functional.pad(part_d, (0, k - kk), value=inf)
+    with _span("squash.stage5"):
+        if refine:
+            # --- Stage 5: full-precision refinement ('EFS' rows) ---------
+            full = stacked.vectors[p_idx, rows]             # (Q,P,take_s,d)
+            diff = full - queries[:, None, None, :]
+            exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
+            exact = torch.where(alive2, exact, inf)
+            part_d, sel3 = torch.sort(exact, dim=-1, stable=True)
+            part_d = part_d[..., :kk]
+            final_rows = torch.gather(rows, -1, sel3[..., :kk])
+        else:
+            part_d = torch.where(alive2, lb_sorted, inf)[..., :kk]
+            final_rows = rows[..., :kk]
+        part_ids = stacked.vector_ids[p_idx, final_rows]
+        part_ids = torch.where(torch.isfinite(part_d), part_ids, -1)
+        if kk < k:
+            part_ids = torch.nn.functional.pad(part_ids, (0, k - kk),
+                                               value=-1)
+            part_d = torch.nn.functional.pad(part_d, (0, k - kk), value=inf)
 
-    # --- single-pass MPI-style merge over partitions (§2.4.5) ------------
-    flat_d = part_d.reshape(qn, p * k)
-    flat_i = part_ids.reshape(qn, p * k)
-    dists, msel = torch.sort(flat_d, dim=1, stable=True)
-    ids = torch.gather(flat_i, 1, msel[:, :k])
+        # --- single-pass MPI-style merge over partitions (§2.4.5) --------
+        flat_d = part_d.reshape(qn, p * k)
+        flat_i = part_ids.reshape(qn, p * k)
+        dists, msel = torch.sort(flat_d, dim=1, stable=True)
+        ids = torch.gather(flat_i, 1, msel[:, :k])
     if mark is not None:
         mark("refine_merge")
     return ids, dists[:, :k]

@@ -137,6 +137,7 @@ def select_partitions(
     k: int,
     balance: bool = False,
     escalations: Optional[list] = None,
+    scanned: Optional[list] = None,
 ) -> Tuple[np.ndarray, List[Dict[int, np.ndarray]]]:
     """Algorithm 1 — Filtered Partition Ranking and Selection.
 
@@ -153,6 +154,10 @@ def select_partitions(
         (query, partition) visits *past* the Eq. 1 threshold cut — the §2.5
         filter-count guarantee at work (counted here, where the cut decision
         is made, so callers can't drift from it).
+      scanned: optional one-element list; incremented by the rows the mask
+        scans read — N for each (query, partition) whose mask is scanned,
+        in the main loop and in the balance loop (counted where the scan
+        happens).
 
     Returns:
       visit: (Q, P) bool — partitions each query must be issued to.
@@ -177,6 +182,7 @@ def select_partitions(
     cands: List[Dict[int, np.ndarray]] = []
     near_miss: List[Tuple[float, int, int]] = []  # (margin, q, partition)
     escalated = 0
+    scans = 0
     for qi in range(qn):
         cand_total = 0
         per_part: Dict[int, np.ndarray] = {}
@@ -188,6 +194,7 @@ def select_partitions(
                 near_miss.append((dists[qi, pid] / max(dmin, 1e-12), qi, pid))
                 break
             rows = np.where(filter_masks[qi] & (assign == pid))[0]
+            scans += 1
             if rows.size:
                 visit[qi, pid] = True
                 per_part[pid] = local_pos[rows]
@@ -204,8 +211,11 @@ def select_partitions(
         for margin, qi, pid in near_miss:
             if visits_per_part[pid] < target and not visit[qi, pid]:
                 rows = np.where(filter_masks[qi] & (assign == pid))[0]
+                scans += 1
                 if rows.size:
                     visit[qi, pid] = True
                     cands[qi][pid] = local_pos[rows]
                     visits_per_part[pid] += 1
+    if scanned is not None:
+        scanned[0] += scans * n
     return visit, cands

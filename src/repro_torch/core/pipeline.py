@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import adc, attributes as attr_mod, lowbit, osq, partitions, segments
+from repro_torch.obs.metrics import REGISTRY as _METRICS
+from repro_torch.obs.spans import profiler_range as _span
 
 __all__ = ["SquashConfig", "PartitionIndex", "SquashIndex", "SearchStats",
            "BACKENDS", "resolve_device", "index_to_arrays",
@@ -273,10 +275,11 @@ class SquashIndex:
                              f"{BACKENDS}")
         if backend == "torch":
             device = resolve_device(device)
-        queries, cands, stats = self.select(queries, predicates, k)
-        if backend == "torch":
-            return self._search_torch(queries, cands, k, stats, device)
-        return self._search_numpy(queries, cands, k, stats)
+        with _span("squash.search"):
+            queries, cands, stats = self.select(queries, predicates, k)
+            if backend == "torch":
+                return self._search_torch(queries, cands, k, stats, device)
+            return self._search_numpy(queries, cands, k, stats)
 
     def select(
         self, queries: np.ndarray, predicates: Sequence[attr_mod.Predicate],
@@ -287,29 +290,35 @@ class SquashIndex:
         Returns the queries as (Q, d) float64, each query's candidate rows
         per visited partition, and the stats counted so far.
         """
-        queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
-        qn = queries.shape[0]
-        stats = SearchStats(queries=qn)
+        with _span("squash.select"):
+            queries = np.atleast_2d(np.asarray(queries, dtype=np.float64))
+            qn = queries.shape[0]
+            stats = SearchStats(queries=qn)
 
-        # Stage 1 — attribute filtering (global mask F per query). Dead
-        # (tombstoned) rows fail the filter outright.
-        r = attr_mod.build_r_lookup(self.attr_index, predicates)
-        f_one = attr_mod.filter_mask(r, self.attr_index.codes).numpy()
-        if self.live_mask is not None:
-            f_one = f_one & self.live_mask
-        f = np.broadcast_to(f_one, (qn, f_one.shape[0]))
-        stats.filter_pass += int(f_one.sum()) * qn
+            # Stage 1 — attribute filtering (global mask F per query). Dead
+            # (tombstoned) rows fail the filter outright.
+            with _span("squash.filter"):
+                r = attr_mod.build_r_lookup(self.attr_index, predicates)
+                f_one = attr_mod.filter_mask(r, self.attr_index.codes).numpy()
+                if self.live_mask is not None:
+                    f_one = f_one & self.live_mask
+                f = np.broadcast_to(f_one, (qn, f_one.shape[0]))
+                stats.filter_pass += int(f_one.sum()) * qn
 
-        # Stage 2 — Algorithm 1 partition ranking/selection.
-        visit, cands = partitions.select_partitions(
-            queries,
-            self.partitioning.centroids,
-            f,
-            self.partitioning.assign,
-            self.partitioning.threshold,
-            k,
-        )
-        stats.partitions_visited += int(visit.sum())
+            # Stage 2 — Algorithm 1 partition ranking/selection.
+            scanned = [0]
+            with _span("squash.alg1"):
+                visit, cands = partitions.select_partitions(
+                    queries,
+                    self.partitioning.centroids,
+                    f,
+                    self.partitioning.assign,
+                    self.partitioning.threshold,
+                    k,
+                    scanned=scanned,
+                )
+            stats.partitions_visited += int(visit.sum())
+            _METRICS.counter("search.alg1.rows_scanned").inc(scanned[0])
         return queries, cands, stats
 
     def _search_numpy(
@@ -381,42 +390,55 @@ class SquashIndex:
         """
         from repro_torch.core import dataplane
 
-        cfg = self.config
-        qn = queries.shape[0]
-        dtype = torch.get_default_dtype()
-        stacked = self.stacked(dtype, device)
-        p, n_max = stacked.num_partitions, stacked.n_max
+        with _span("squash.plane"):
+            cfg = self.config
+            qn = queries.shape[0]
+            dtype = torch.get_default_dtype()
+            stacked = self.stacked(dtype, device)
+            p, n_max = stacked.num_partitions, stacked.n_max
 
-        cand_mask, n_cand = dataplane.build_cand_arrays(cands, qn, p, n_max)
-        keep, take = dataplane.stage_counts(n_cand, cfg, k, self.profile)
-        keep_s, take_s = dataplane.static_counts(n_max, cfg, k, self.profile)
+            with _span("squash.densify"):
+                cand_mask, n_cand = dataplane.build_cand_arrays(
+                    cands, qn, p, n_max)
+                keep, take = dataplane.stage_counts(n_cand, cfg, k,
+                                                    self.profile)
+                keep_s, take_s = dataplane.static_counts(n_max, cfg, k,
+                                                         self.profile)
 
-        # Bucket Q to the next power of two, as the reference does, so the
-        # kernels see the reference's shapes. Padded queries are dead
-        # (keep=0, empty mask) and sliced off below.
-        bucket = 1 << (qn - 1).bit_length() if qn > 1 else 1
-        if bucket != qn:
-            pad = bucket - qn
-            queries = np.pad(queries, ((0, pad), (0, 0)))
-            cand_mask = np.pad(cand_mask, ((0, pad), (0, 0), (0, 0)))
-            keep = np.pad(keep, ((0, pad), (0, 0)))
-            take = np.pad(take, ((0, pad), (0, 0)))
-        ids, dists = dataplane.batched_stage345(
-            torch.from_numpy(queries).to(device=device, dtype=dtype),
-            stacked,
-            torch.from_numpy(cand_mask).to(device),
-            torch.from_numpy(keep).to(device),
-            torch.from_numpy(take).to(device),
-            k=k, keep_s=keep_s, take_s=take_s, refine=cfg.enable_refine,
-            mark=mark,
-        )
-        ids = ids[:qn].cpu().numpy().astype(np.int64)
-        dists = dists[:qn].cpu().numpy().astype(np.float64)
-        stats.hamming_in += int(n_cand.sum())
-        stats.hamming_kept += int(keep.sum())
-        stats.adc_evals += int(keep.sum())
-        if cfg.enable_refine:
-            stats.refined += int(take.sum())
+                # Bucket Q to the next power of two, as the reference does,
+                # so the kernels see the reference's shapes. Padded queries
+                # are dead (keep=0, empty mask) and sliced off below.
+                bucket = 1 << (qn - 1).bit_length() if qn > 1 else 1
+                if bucket != qn:
+                    pad = bucket - qn
+                    queries = np.pad(queries, ((0, pad), (0, 0)))
+                    cand_mask = np.pad(cand_mask, ((0, pad), (0, 0), (0, 0)))
+                    keep = np.pad(keep, ((0, pad), (0, 0)))
+                    take = np.pad(take, ((0, pad), (0, 0)))
+
+            with _span("squash.upload"):
+                _METRICS.counter("search.upload.bytes").inc(
+                    queries.nbytes + cand_mask.nbytes + keep.nbytes
+                    + take.nbytes)
+                q_dev = torch.from_numpy(queries).to(device=device,
+                                                     dtype=dtype)
+                mask_dev = torch.from_numpy(cand_mask).to(device)
+                keep_dev = torch.from_numpy(keep).to(device)
+                take_dev = torch.from_numpy(take).to(device)
+            ids, dists = dataplane.batched_stage345(
+                q_dev, stacked, mask_dev, keep_dev, take_dev,
+                k=k, keep_s=keep_s, take_s=take_s, refine=cfg.enable_refine,
+                mark=mark,
+            )
+            # The host waits here until the card has finished the plane.
+            with _span("squash.fetch"):
+                ids = ids[:qn].cpu().numpy().astype(np.int64)
+                dists = dists[:qn].cpu().numpy().astype(np.float64)
+                stats.hamming_in += int(n_cand.sum())
+                stats.hamming_kept += int(keep.sum())
+                stats.adc_evals += int(keep.sum())
+                if cfg.enable_refine:
+                    stats.refined += int(take.sum())
         return ids, dists, stats
 
     def _search_partition(

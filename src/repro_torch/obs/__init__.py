@@ -6,12 +6,16 @@ The port of the JAX package's ``repro.obs`` (pure Python, copied as is).
   counters / gauges / fixed-bucket latency histograms (p50/p95/p99),
   disabled by default and zero-cost when off. Instrumented call sites live
   in ``serverless.transport`` / ``socket_transport`` (submits, retries,
-  respawns, reconnects, heartbeats, frame bytes, invoke latency) and
-  ``core.dre`` (result-cache hits/misses/evictions, pool leases/warm rate).
+  respawns, reconnects, heartbeats, frame bytes, invoke latency),
+  ``core.dre`` (result-cache hits/misses/evictions, pool leases/warm rate)
+  and ``core.pipeline``'s single-host search (``search.alg1.rows_scanned``,
+  ``search.upload.bytes``).
 * ``spans``    — span contexts that cross the transport boundary inside the
   ``extra`` envelope (never the budgeted payload), worker-side sub-spans
   echoed back in the response ``info``, and the per-run :class:`Recorder`
-  that stitches them into one tree.
+  that stitches them into one tree; and :func:`profiler_range`, through
+  which the single-host search opens its ``squash.*`` profiler ranges
+  (the module's docstring sets the two kinds apart).
 * ``export``   — JSONL persistence under ``results/`` + an in-memory
   exporter for tests.
 * ``timeline`` — ``python -m repro_torch.obs.timeline <trace.jsonl>``: a

@@ -2,10 +2,11 @@
 
 The registry is **disabled by default and zero-cost when off**: every
 accessor returns one shared no-op metric, so instrumented hot paths (the
-transports, DRE, the dataplane trace hook) pay a dict-free method call and
-nothing else — ids, ``SearchStats`` and all traces are bitwise-identical
-with metrics on or off. Enabling (``REGISTRY.enable()``, or transparently
-via ``RuntimeConfig(obs_enabled=True)``) turns the same call sites into real
+transports, DRE, the single-host search path in ``core.pipeline``) pay a
+dict-free method call and nothing else — ids, ``SearchStats`` and all
+traces are bitwise-identical with metrics on or off. Enabling
+(``REGISTRY.enable()``, or transparently via
+``RuntimeConfig(obs_enabled=True)``) turns the same call sites into real
 instruments.
 
 Histograms are fixed-bucket: each observation lands in the first bucket

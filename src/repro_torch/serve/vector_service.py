@@ -17,8 +17,10 @@ directly, so the data plane becomes a routing decision:
   loop, real batches the batched torch plane.
 
 The service also plays the QueryAllocator's accounting role: it accumulates
-:class:`~repro_torch.core.pipeline.SearchStats` across requests and tracks
-wall time and served queries per backend. With
+:class:`~repro_torch.core.pipeline.SearchStats` across requests and counts
+served queries per backend. A request's time is read from a profiler: the
+``squash.search`` range that ``SquashIndex.search`` opens (numpy and torch
+backends), or the serverless run's trace (``last_trace``). With
 ``ServiceConfig(recall_target=…)`` it runs the recall-targeted Hamming
 autotune against the bound index at bind time and on every ``swap_index``.
 """
@@ -26,7 +28,6 @@ autotune against the bound index at bind time and on every ``swap_index``.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,7 +77,6 @@ class VectorSearchService:
             raise ValueError(f"unknown backend {self.config.backend!r}")
         self.stats = SearchStats()
         self.requests = 0
-        self.wall_s: Dict[str, float] = {b: 0.0 for b in _CALL_BACKENDS}
         self.queries_served: Dict[str, int] = {b: 0 for b in _CALL_BACKENDS}
         self._runtime = None
         self.last_trace = None         # RunTrace of the last serverless call
@@ -181,7 +181,6 @@ class VectorSearchService:
         k = k or self.config.default_k
         chosen = (self.resolve_backend(queries.shape[0])
                   if backend in (None, "auto") else backend)
-        t0 = time.perf_counter()
         if chosen == "serverless":
             result = self.runtime().search(queries, list(predicates), k=k)
             ids, dists, stats = result.ids, result.dists, result.stats
@@ -190,14 +189,7 @@ class VectorSearchService:
             ids, dists, stats = self.index.search(
                 queries, list(predicates), k=k, backend=chosen,
                 device=self.config.device)
-        dt = time.perf_counter() - t0
         self.requests += 1
         self.stats.merge(stats)
-        self.wall_s[chosen] += dt
         self.queries_served[chosen] += queries.shape[0]
         return ids, dists, stats
-
-    def qps(self, backend: str) -> float:
-        """Served-queries-per-second for one backend (0 if unused)."""
-        t = self.wall_s.get(backend, 0.0)
-        return self.queries_served.get(backend, 0) / t if t > 0 else 0.0
