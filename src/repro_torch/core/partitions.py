@@ -138,6 +138,7 @@ def select_partitions(
     balance: bool = False,
     escalations: Optional[list] = None,
     scanned: Optional[list] = None,
+    shared_scans: Optional[list] = None,
 ) -> Tuple[np.ndarray, List[Dict[int, np.ndarray]]]:
     """Algorithm 1 — Filtered Partition Ranking and Selection.
 
@@ -145,7 +146,10 @@ def select_partitions(
       queries: (Q, d).
       centroids: (P, d).
       filter_masks: (Q, N) bool — attribute satisfaction mask F per query.
-      assign: (N,) home partition of each vector (the P_V map).
+        A row shared by every query (a broadcast view, row stride 0, or
+        Q = 1) is scanned once per partition for the whole batch.
+      assign: (N,) home partition of each vector (the P_V map). Rows with
+        the out-of-range sentinel ``assign == P`` belong to no partition.
       threshold: T (multiplicative factor over the nearest centroid distance).
       k: top-k target.
       balance: optional batch load-balancing step (assign extra queries to
@@ -154,35 +158,53 @@ def select_partitions(
         (query, partition) visits *past* the Eq. 1 threshold cut — the §2.5
         filter-count guarantee at work (counted here, where the cut decision
         is made, so callers can't drift from it).
-      scanned: optional one-element list; incremented by the rows the mask
-        scans read — N for each (query, partition) whose mask is scanned,
-        in the main loop and in the balance loop (counted where the scan
-        happens).
+      scanned: optional one-element list; incremented by the rows of the
+        filter mask the scans read — a partition's n_p rows per scan, or
+        once per partition for a shared row (main and balance loops).
+      shared_scans: optional one-element list; incremented by the
+        (query, partition) scans answered from a shared row's per-partition
+        row sets (every scan when the row is shared, else none).
 
     Returns:
       visit: (Q, P) bool — partitions each query must be issued to.
       cands: per-query dict partition → local candidate row indices (into the
-        partition's local vector order). Every visited partition carries a
-        non-empty candidate bitmap, so per-partition processors prune all
-        non-passing vectors (single-pass guarantee).
+        partition's local vector order), int64 ascending. Every visited
+        partition carries a non-empty candidate bitmap, so per-partition
+        processors prune all non-passing vectors (single-pass guarantee).
+        Under a shared row, queries visiting one partition share one
+        read-only array.
     """
     queries = np.asarray(queries, dtype=np.float64)
     qn, d = queries.shape
     p = centroids.shape[0]
-    n = assign.shape[0]
-    # Local (within-partition) index of every vector, in global order.
-    order = np.argsort(assign, kind="stable")
-    local_pos = np.empty(n, dtype=np.int64)
-    counts = np.bincount(assign, minlength=p)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    local_pos[order] = np.arange(n) - np.repeat(starts, counts)
+    # A partition's local rows are its members in ascending global id (the
+    # order a live index keeps), so local row j is global id members[pid][j].
+    members: List[Optional[np.ndarray]] = [None] * p
+    one_row = qn == 1 or filter_masks.strides[0] == 0
+    shared: List[Optional[np.ndarray]] = [None] * p
+    mask_reads = 0
+    n_shared = 0
+
+    def local_rows(qi: int, pid: int) -> np.ndarray:
+        nonlocal mask_reads, n_shared
+        if one_row:
+            n_shared += 1
+            if shared[pid] is not None:
+                return shared[pid]
+        if members[pid] is None:
+            members[pid] = np.flatnonzero(assign == pid)
+        mask_reads += members[pid].size
+        rows = np.flatnonzero(filter_masks[qi][members[pid]])
+        if one_row:
+            rows.flags.writeable = False
+            shared[pid] = rows
+        return rows
 
     dists = np.sqrt(_chunked_sqdist(queries, centroids))
     visit = np.zeros((qn, p), dtype=bool)
     cands: List[Dict[int, np.ndarray]] = []
     near_miss: List[Tuple[float, int, int]] = []  # (margin, q, partition)
     escalated = 0
-    scans = 0
     for qi in range(qn):
         cand_total = 0
         per_part: Dict[int, np.ndarray] = {}
@@ -193,11 +215,10 @@ def select_partitions(
             if past_cut and cand_total >= k:
                 near_miss.append((dists[qi, pid] / max(dmin, 1e-12), qi, pid))
                 break
-            rows = np.where(filter_masks[qi] & (assign == pid))[0]
-            scans += 1
+            rows = local_rows(qi, pid)
             if rows.size:
                 visit[qi, pid] = True
-                per_part[pid] = local_pos[rows]
+                per_part[pid] = rows
                 cand_total += rows.size
                 if past_cut:
                     escalated += 1
@@ -210,12 +231,13 @@ def select_partitions(
         near_miss.sort()
         for margin, qi, pid in near_miss:
             if visits_per_part[pid] < target and not visit[qi, pid]:
-                rows = np.where(filter_masks[qi] & (assign == pid))[0]
-                scans += 1
+                rows = local_rows(qi, pid)
                 if rows.size:
                     visit[qi, pid] = True
-                    cands[qi][pid] = local_pos[rows]
+                    cands[qi][pid] = rows
                     visits_per_part[pid] += 1
     if scanned is not None:
-        scanned[0] += scans * n
+        scanned[0] += mask_reads
+    if shared_scans is not None:
+        shared_scans[0] += n_shared
     return visit, cands

@@ -306,7 +306,7 @@ class SquashIndex:
                 stats.filter_pass += int(f_one.sum()) * qn
 
             # Stage 2 — Algorithm 1 partition ranking/selection.
-            scanned = [0]
+            scanned, shared = [0], [0]
             with _span("squash.alg1"):
                 visit, cands = partitions.select_partitions(
                     queries,
@@ -316,9 +316,11 @@ class SquashIndex:
                     self.partitioning.threshold,
                     k,
                     scanned=scanned,
+                    shared_scans=shared,
                 )
             stats.partitions_visited += int(visit.sum())
             _METRICS.counter("search.alg1.rows_scanned").inc(scanned[0])
+            _METRICS.counter("search.alg1.shared_scans").inc(shared[0])
         return queries, cands, stats
 
     def _search_numpy(

@@ -9,7 +9,7 @@ The port of the JAX package's ``repro.obs`` (pure Python, copied as is).
   respawns, reconnects, heartbeats, frame bytes, invoke latency),
   ``core.dre`` (result-cache hits/misses/evictions, pool leases/warm rate)
   and ``core.pipeline``'s single-host search (``search.alg1.rows_scanned``,
-  ``search.upload.bytes``).
+  ``search.alg1.shared_scans``, ``search.upload.bytes``).
 * ``spans``    — span contexts that cross the transport boundary inside the
   ``extra`` envelope (never the budgeted payload), worker-side sub-spans
   echoed back in the response ``info``, and the per-run :class:`Recorder`

@@ -7,8 +7,9 @@
   inside the outer ranges a caller opens around it;
 * ids, dists and ``SearchStats`` are bitwise equal with the profiler on
   and off, and with the metrics registry on and off;
-* ``search.alg1.rows_scanned`` and ``search.upload.bytes`` equal plain
-  counts made here, and a disabled registry holds no ``search.*`` key;
+* ``search.alg1.rows_scanned``, ``search.alg1.shared_scans`` and
+  ``search.upload.bytes`` equal plain counts made here, and a disabled
+  registry holds no ``search.*`` key;
 * the ranges are opened only while a profiler records, and then also on
   a thread that was started before the profiler.
 """
@@ -181,19 +182,19 @@ def test_answers_equal_with_profiler_and_registry_on_and_off(
 
 
 def _plain_scans(index, queries, fmask, k):
-    """(query, partition) scans of Algorithm 1, counted by hand: ranked
+    """(query, partition) scans of Algorithm 1, listed by hand: ranked
     partitions are scanned until one past the threshold cut is reached
     with k candidates already found."""
     part = index.partitioning
-    scans = 0
-    for q in queries:
+    scans = []
+    for qi, q in enumerate(queries):
         dist = np.sqrt(((part.centroids - q) ** 2).sum(-1))
         dmin = max(dist.min(), 1e-12)
         found = 0
         for pid in np.argsort(dist):
             if dist[pid] > part.threshold * dmin and found >= k:
                 break
-            scans += 1
+            scans.append((qi, pid))
             found += int((fmask & (part.assign == pid)).sum())
     return scans
 
@@ -205,33 +206,66 @@ def _filter_mask(attrs, preds):
     return mask
 
 
-def test_rows_scanned_counts_each_scan_of_the_mask(built):
-    ds, preds, index = built
+def _counted(fn):
     REGISTRY.reset()
     REGISTRY.enable()
     try:
-        _search(index, ds, preds)
-        got = REGISTRY.snapshot()["counters"]["search.alg1.rows_scanned"]
+        fn()
+        return REGISTRY.snapshot()["counters"]
     finally:
         REGISTRY.disable()
         REGISTRY.reset()
-    n = index.partitioning.assign.shape[0]
-    fmask = _filter_mask(ds.attributes, preds)
-    assert got == _plain_scans(index, ds.queries, fmask, K) * n > 0
+
+
+def test_rows_scanned_counts_each_scan_of_the_mask(built):
+    # The search shares one filter row across the batch: each partition's
+    # n_p rows of it are read once, however many queries scan it.
+    ds, preds, index = built
+    got = _counted(lambda: _search(index, ds, preds))
+    n_p = np.bincount(index.partitioning.assign)
+    scans = _plain_scans(index, ds.queries, _filter_mask(ds.attributes,
+                                                         preds), K)
+    scanned_parts = sorted({pid for _, pid in scans})
+    assert got["search.alg1.rows_scanned"] == n_p[scanned_parts].sum() > 0
+    assert got["search.alg1.shared_scans"] == len(scans) \
+        > len(scanned_parts)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_shared_scans_count_the_shared_row(built, shared):
+    ds, _, index = built
+    part = index.partitioning
+    n = part.assign.shape[0]
+    fmask = np.ones(n, bool)
+    masks = np.broadcast_to(fmask, (len(ds.queries), n)) if shared \
+        else np.ones((len(ds.queries), n), bool)
+    rows, reused = [0], [0]
+    partitions.select_partitions(
+        ds.queries, part.centroids, masks, part.assign, part.threshold, K,
+        scanned=rows, shared_scans=reused)
+    scans = len(_plain_scans(index, ds.queries, fmask, K))
+    assert reused[0] == (scans if shared else 0)
+    assert scans > 0
 
 
 @pytest.mark.parametrize("balance", [False, True])
 def test_rows_scanned_counts_the_balance_loop(built, balance):
     # With every row passing, each scan finds rows and becomes a visit, in
-    # the main loop and in the balance loop alike.
+    # the main loop and in the balance loop alike: a dense mask reads n_p
+    # rows a scan, a shared row n_p once for each partition scanned.
     ds, _, index = built
     part = index.partitioning
     n = part.assign.shape[0]
-    box = [0]
-    visit, _ = partitions.select_partitions(
-        ds.queries, part.centroids, np.ones((len(ds.queries), n), bool),
-        part.assign, part.threshold, K, balance=balance, scanned=box)
-    assert box[0] == int(visit.sum()) * n > 0
+    n_p = np.bincount(part.assign, minlength=part.num_partitions)
+    for masks in (np.ones((len(ds.queries), n), bool),
+                  np.broadcast_to(np.ones(n, bool), (len(ds.queries), n))):
+        box = [0]
+        visit, _ = partitions.select_partitions(
+            ds.queries, part.centroids, masks, part.assign, part.threshold,
+            K, balance=balance, scanned=box)
+        want = (visit.sum(0) * n_p).sum() if masks.strides[0] \
+            else n_p[visit.any(0)].sum()
+        assert box[0] == want > 0
 
 
 def test_upload_bytes_are_the_uploaded_arrays(built):
